@@ -5,15 +5,26 @@
 
 Run from the root of a checkout.  It
 1. prints the card (torch's name, and nvidia-smi's name and power limit);
-2. builds every CUDA kernel of the port from medseg_tpu_torch/csrc/;
+2. builds every CUDA kernel of the port from medseg_tpu_torch/csrc/, one
+   nvcc each, all started together;
 3. holds each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it, with the tolerance stated per case;
-4. drives the main path at full width: a synthetic packed set at 256px,
-   BatchLoader(device_cache=True), augment_batch (one warp-kernel launch
-   with the photometric epilogue) -> ResNet18 bf16 forward -> argmax ->
-   classification_metrics, and checks that every kernel of the path was
-   launched, that the logits are finite and that the bf16 forward agrees
-   with a float32 forward of the same weights;
+   shapes its paths give it, with the tolerance stated per case, and times
+   kernel, plain version and, where there is one, a library call, as device
+   time from torch.profiler (the kernel's own launches only, for the
+   kernel);
+4. drives three paths at full width, each with every launch count set to 0
+   just before it and read just after:
+   - aug+infer: a synthetic packed set at 256px, BatchLoader(device_cache=
+     True), augment_batch (one warp-kernel launch with the photometric
+     epilogue) -> ResNet18 bf16 forward -> argmax -> classification_metrics;
+     the bf16 forward must agree with a float32 forward of the same weights;
+   - eval: a random ResNet18 written as the reference's .pt, then
+     test_all_models over a 1000-image synthetic test split (batches of 16,
+     one photometric-kernel launch each) -> print_summary ->
+     save_results_to_csv, read back with csv;
+   - fused stem: the warp kernel's planar bf16 output -> apply_with_stem_
+     kernel (one stem-kernel launch) on ResNet18 bf16, against model(x) on
+     the same batch in NHWC;
 5. prints one JSON line with every kernel's launches, error and times, and
    as its last line {"ok": true, "device": {...}}.
 
@@ -24,9 +35,11 @@ JAX or of the JAX package.
 
 from __future__ import annotations
 
+import csv
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -35,14 +48,17 @@ import torch
 
 HERE = Path(__file__).resolve().parent
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 rate
-# outside the tensor cores.
+# Published H100 SXM peaks (NVIDIA data sheet): HBM rate, float32 rate
+# outside the tensor cores, and dense bf16 on the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 BATCH = 128          # main-path batch
 SIZE = 256           # IMG_SIZE
 N_SAMPLES = 1024     # 8 batches of 128
+EVAL_SAMPLES = 1000  # eval path: 62 batches of 16 and a ragged 8
+EVAL_BATCH = 16      # EvalConfig.batch_size
 SEED = 0
 
 
@@ -58,7 +74,8 @@ def card_label() -> str:
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean milliseconds of fn() on the current stream (CUDA events)."""
+    """Mean milliseconds of fn() on the current stream (CUDA events).  For
+    work of a few microseconds this measures the host's launch rate."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -71,15 +88,98 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def warp_bound_ms(b: int, h: int, w: int, c: int, out_bytes: int):
-    """Least time for the warp on this card: each uint8 input byte read and
-    each output written once, against the 16-tap weighted sum each output
-    value needs (16 multiply-adds = 32 flops) plus the epilogue's 4, in
-    float32 outside the tensor cores.  Returns (ms, "bytes"|"operations")."""
-    values = b * h * w * c
-    t_bytes = (values * (1 + out_bytes) + b * 8 * 4) / HBM_BYTES_PER_S
-    t_ops = values * (32 + 4) / F32_FLOPS_PER_S
+def device_ms(fn, reps: int, kernel: str = "") -> float:
+    """Mean milliseconds of device time per call of fn(), from
+    torch.profiler: the kernels whose name contains `kernel`, or every
+    kernel and copy that fn() runs.  Host overhead between launches is not
+    counted.  Falls back to CUDA events if the profiler records no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages()
+                   if e.device_type.name == "CUDA" and kernel in e.key)
+    if total_us <= 0:
+        print(f"chip_smoke: the profiler recorded no device time for "
+              f"{kernel or 'fn'}; timing with CUDA events instead")
+        return cuda_ms(fn, reps)
+    return total_us / reps / 1e3
+
+
+def bound_ms(n_bytes: float, flops: float, flops_per_s: float):
+    """Least time on this card: the larger of the bytes over the HBM rate
+    and the operations over the peak rate of their type.
+    Returns (ms, "bytes"|"operations")."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = flops / flops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def warp_bound_ms(b: int, h: int, w: int, c: int, out_bytes: int):
+    """The warp: each uint8 input byte read and each output written once
+    (in either layout), against the 16-tap weighted sum each output value
+    needs (16 multiply-adds = 32 flops) plus the epilogue's 4, in float32
+    outside the tensor cores."""
+    values = b * h * w * c
+    return bound_ms(values * (1 + out_bytes) + b * 8 * 4, values * (32 + 4),
+                    F32_FLOPS_PER_S)
+
+
+def photometric_bound_ms(b: int, h: int, w: int, c: int, out_bytes: int):
+    """The photometric pass: each uint8 input byte read and each output
+    written once (+ the [B,3] float32 scalars), against 7 float32 flops per
+    value (multiply, multiply-add, clip, subtract, divide)."""
+    values = b * h * w * c
+    return bound_ms(values * (1 + out_bytes) + b * 3 * 4, values * 7,
+                    F32_FLOPS_PER_S)
+
+
+def stem_bound_ms(b: int, h: int, w: int, elem_bytes: int):
+    """The fused stem: 147 multiply-adds for each of the B*(H/2)*(W/2)*64
+    conv outputs, at the tensor cores' bf16 rate (float32 outside them for
+    float32), against the planar input read and the pooled NHWC output
+    written once (+ the folded weights and bias)."""
+    flops = b * (h // 2) * (w // 2) * 64 * 147 * 2
+    n_bytes = (b * 3 * h * w + b * (h // 4) * (w // 4) * 64
+               + 64 * 147 + 64) * elem_bytes
+    rate = BF16_FLOPS_PER_S if elem_bytes == 2 else F32_FLOPS_PER_S
+    return bound_ms(n_bytes, flops, rate)
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at |x| (8 significant bits)."""
+    mag = x.abs().float().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def kernel_counts():
+    from medseg_tpu_torch.ops.kernels.photometric import fused_photometric
+    from medseg_tpu_torch.ops.kernels.stem_kernel import stem_conv_pool
+    from medseg_tpu_torch.ops.kernels.warp_kernel import warp_affine_kernel
+
+    return {"warp_affine": warp_affine_kernel, "fused_photometric": fused_photometric,
+            "stem_conv_pool": stem_conv_pool}
+
+
+def reset_counts() -> None:
+    for fn in kernel_counts().values():
+        fn.launches = 0
+
+
+def read_counts(path: str, expected: dict) -> dict:
+    """The launch counts just after a path; fails unless they are exactly
+    `expected` (a kernel that is not expected must not have launched)."""
+    got = {name: fn.launches for name, fn in kernel_counts().items()}
+    want = {name: expected.get(name, 0) for name in got}
+    if got != want:
+        fail(f"{path}: kernel launches {got}, expected {want}")
+    return got
 
 
 def check_warp_kernel(card: str):
@@ -119,6 +219,11 @@ def check_warp_kernel(card: str):
                   dict(alpha=p4.alpha, beta=p4.beta, mean=mean + (0.0,),
                        std=std + (1.0,)), 1e-3,
                   "same float32 operation order, no FMA: expect 0"))
+    cases.append(("bilinear C=3 epilogue bf16 planar (stem path)", imgs, mats,
+                  dict(main_kw, planar=True), 2.0 ** -6,
+                  "one bf16 ulp at the output's largest magnitude (|x| < 4)"))
+    cases.append(("bilinear C=3 f32 planar", imgs8, mats8, dict(planar=True),
+                  1e-3, "same float32 operation order, no FMA: expect 0"))
     main_err = None
     for name, x, m, kw, tol, why in cases:
         got = warp_affine_kernel(x, m, **kw)
@@ -133,15 +238,142 @@ def check_warp_kernel(card: str):
         if main_err is None:
             main_err = err
 
-    ms = cuda_ms(lambda: warp_affine_kernel(imgs, mats, **main_kw), reps=50)
-    plain_ms = cuda_ms(lambda: warp_affine_fast(imgs, mats, **main_kw), reps=5)
-    bound_ms, bound_by = warp_bound_ms(BATCH, SIZE, SIZE, 3, out_bytes=2)
+    ms = device_ms(lambda: warp_affine_kernel(imgs, mats, **main_kw), 50,
+                   "warp_affine_kernel<")
+    planar_ms = device_ms(lambda: warp_affine_kernel(imgs, mats, **main_kw,
+                                                     planar=True), 50,
+                          "warp_affine_kernel<")
+    plain_ms = device_ms(lambda: warp_affine_fast(imgs, mats, **main_kw), 5)
+    b_ms, b_by = warp_bound_ms(BATCH, SIZE, SIZE, 3, out_bytes=2)
     print(f"[{card}] warp kernel B={BATCH} {SIZE}x{SIZE}x3 u8->bf16 with "
-          f"epilogue: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by}); no single PyTorch call "
-          f"computes this two-pass warp, so library_ms is null")
+          f"epilogue: kernel {ms:.4f} ms (planar out {planar_ms:.4f} ms), plain "
+          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); no single PyTorch "
+          f"call computes this two-pass warp, so library_ms is null")
     return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def check_photometric_kernel(card: str):
+    """The photometric kernel against its plain version: the eval form
+    (alpha=1, beta=0, no flip, float32 out) at the eval path's B=16 and at
+    B=128, and bf16 out with sampled alpha, beta and flips at B=128.  Same
+    float32 operation order, no FMA: tolerance 0.  Returns the eval path's
+    form's record."""
+    from medseg_tpu_torch.core.config import AugmentConfig
+    from medseg_tpu_torch.ops.augment import sample_augment_params
+    from medseg_tpu_torch.ops.kernels.photometric import (
+        fused_photometric, fused_photometric_reference)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+
+    def eval_form(b):
+        imgs = torch.randint(0, 256, (b, SIZE, SIZE, 3), generator=gen,
+                             device=dev, dtype=torch.uint8)
+        ones = torch.ones(b, device=dev)
+        return (imgs, ones, torch.zeros_like(ones),
+                torch.zeros(b, dtype=torch.bool, device=dev))
+
+    p = sample_augment_params(gen, BATCH, AugmentConfig())
+    flip = p.flip.clone()
+    flip[:2] = torch.tensor([True, False])  # both kinds, whatever the draw
+    sampled = (eval_form(BATCH)[0], p.alpha, p.beta, flip)
+    cases = [("eval form f32 B=16 (eval path)", eval_form(EVAL_BATCH), torch.float32),
+             ("eval form f32 B=128", eval_form(BATCH), torch.float32),
+             ("sampled alpha/beta/flip bf16 B=128", sampled, torch.bfloat16)]
+    records = []
+    for name, args, dtype in cases:
+        got = fused_photometric(*args, out_dtype=dtype)
+        torch.cuda.synchronize()
+        want = fused_photometric_reference(*args, out_dtype=dtype)
+        err = (got.float() - want.float()).abs().max().item()
+        print(f"[{card}] photometric kernel vs plain, {name}: max_abs_err={err} "
+              f"tol=0 (same float32 operation order, no FMA)")
+        if err != 0.0:
+            fail(f"photometric kernel disagrees with its plain version ({name}): {err}")
+        b = args[0].shape[0]
+        ms = device_ms(lambda: fused_photometric(*args, out_dtype=dtype), 100,
+                       "photometric_kernel<")
+        plain_ms = device_ms(lambda: fused_photometric_reference(*args, out_dtype=dtype),
+                             10)
+        b_ms, b_by = photometric_bound_ms(b, SIZE, SIZE, 3, dtype.itemsize)
+        print(f"[{card}] photometric kernel {name}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); no single "
+              f"PyTorch call computes flip + brightness/contrast + "
+              f"normalize, so library_ms is null")
+        records.append({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    return records[0]
+
+
+def check_stem_kernel(card: str):
+    """The stem kernel against its plain version (a float32 conv, bias,
+    ReLU and pool): float32 at B=4, 64px; a constant-1 input at B=2, 32px,
+    which exposes any border mismatch; and bf16 at the stem path's B=128,
+    256px on the warp kernel's planar output.  Returns the last one's
+    record, with the cuDNN composite (conv2d + bias + relu + max_pool2d in
+    bf16) as its library time."""
+    import torch.nn.functional as F
+
+    from medseg_tpu_torch.core.config import AugmentConfig, IMAGENET_MEAN, IMAGENET_STD
+    from medseg_tpu_torch.ops.augment import _combined_matrices, sample_augment_params
+    from medseg_tpu_torch.ops.kernels.stem_kernel import (stem_conv_pool,
+                                                          stem_conv_pool_reference)
+    from medseg_tpu_torch.ops.kernels.warp_kernel import warp_affine_kernel
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+
+    def weights(dtype):
+        w = torch.randn(64, 3, 7, 7, generator=gen, device=dev) * 0.1
+        return w.to(dtype), (torch.randn(64, generator=gen, device=dev) * 0.1).to(dtype)
+
+    imgs = torch.randint(0, 256, (BATCH, SIZE, SIZE, 3), generator=gen,
+                         device=dev, dtype=torch.uint8)
+    p = sample_augment_params(gen, BATCH, AugmentConfig())
+    planes = warp_affine_kernel(
+        imgs, _combined_matrices(p, SIZE, SIZE), out_dtype=torch.bfloat16,
+        alpha=p.alpha, beta=p.beta, mean=tuple(m * 255.0 for m in IMAGENET_MEAN),
+        std=tuple(s * 255.0 for s in IMAGENET_STD), planar=True)
+    # (name, planes, weight, bias, absolute tolerance, bf16 ulps, why)
+    cases = [("f32 B=4 64px", torch.randn(4, 3 * 64, 64, generator=gen, device=dev),
+              *weights(torch.float32), 1e-4, 0, "float32 summation order"),
+             ("constant-1 f32 B=2 32px (borders)", torch.ones(2, 96, 32, device=dev),
+              *weights(torch.float32), 1e-4, 0, "float32 summation order"),
+             ("bf16 B=128 256px planar from the warp kernel (stem path)", planes,
+              *weights(torch.bfloat16), 1e-5, 1,
+              "one bf16 ulp of the element's magnitude, as the float32 sums "
+              "may round to neighbouring bf16 values, plus 1e-5 where they "
+              "straddle ReLU's zero")]
+    for name, x, w, b, atol, ulps, why in cases:
+        got = stem_conv_pool(x, w, b)
+        torch.cuda.synchronize()
+        want = stem_conv_pool_reference(x, w, b)
+        diff = (got.float() - want.float()).abs()
+        allowed = atol + ulps * bf16_ulp(torch.maximum(got.float().abs(),
+                                                       want.float().abs()))
+        err = diff.max().item()
+        print(f"[{card}] stem kernel vs plain, {name}: max_abs_err={err} "
+              f"tol={atol}{f' + {ulps} bf16 ulp' if ulps else ''} ({why})")
+        if not (diff <= allowed).all() or got.shape != want.shape:
+            fail(f"stem kernel disagrees with its plain version ({name}): {err}")
+
+    def library():
+        y = F.conv2d(x.view(BATCH, 3, SIZE, SIZE), w, stride=2, padding=3)
+        y = torch.relu(y + b[None, :, None, None])
+        return F.max_pool2d(y, 3, 2, padding=1)
+
+    ms = device_ms(lambda: stem_conv_pool(x, w, b), 20, "stem_conv_pool_kernel<")
+    plain_ms = device_ms(lambda: stem_conv_pool_reference(x, w, b), 5)
+    library_ms = device_ms(library, 20)
+    b_ms, b_by = stem_bound_ms(BATCH, SIZE, SIZE, 2)
+    print(f"[{card}] stem kernel B={BATCH} {SIZE}x{SIZE} bf16 planar -> "
+          f"[{BATCH},{SIZE // 4},{SIZE // 4},64]: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), library {library_ms:.4f}"
+          f" ms (cuDNN composite: conv2d + bias + relu + max_pool2d, 4 calls, "
+          f"NCHW out)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
 
 
 def run_main_path(card: str):
@@ -151,7 +383,6 @@ def run_main_path(card: str):
     from medseg_tpu_torch.eval.metrics import classification_metrics
     from medseg_tpu_torch.models.resnet import resnet18
     from medseg_tpu_torch.ops.augment import augment_batch
-    from medseg_tpu_torch.ops.kernels.warp_kernel import warp_affine_kernel
 
     t0 = time.perf_counter()
     ds = synthetic_cls(n=N_SAMPLES, img_size=SIZE, seed=SEED)
@@ -172,7 +403,7 @@ def run_main_path(card: str):
         step(images)
         torch.cuda.synchronize()
 
-        warp_affine_kernel.launches = 0
+        reset_counts()
         preds, labels, aug_ms, fwd_ms = [], [], [], []
         t0 = time.perf_counter()
         for images, target in loader:
@@ -187,11 +418,8 @@ def run_main_path(card: str):
             aug_ms.append(ev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = warp_affine_kernel.launches
         n_batches = len(aug_ms)
-
-        if launches != n_batches:
-            fail(f"warp kernel launched {launches} times for {n_batches} batches")
+        launches = read_counts("aug+infer path", {"warp_affine": n_batches})
         if logits.shape != (BATCH, 3) or not torch.isfinite(logits).all():
             fail(f"bad logits: shape {tuple(logits.shape)}, "
                  f"finite={bool(torch.isfinite(logits).all())}")
@@ -221,7 +449,144 @@ def run_main_path(card: str):
           f"whole step {n_batches * BATCH / wall:.1f} img/s "
           f"(loader+augment+forward+argmax, host clock); "
           f"accuracy {metrics['accuracy']:.2f}% (untrained)")
-    return {"warp_affine": launches}
+    return launches
+
+
+def randomize_bn_stats(model, gen: torch.Generator) -> None:
+    """Running statistics away from their init values, so folding them is
+    real work."""
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            dev = m.running_mean.device
+            m.running_mean.copy_(torch.randn(m.num_features, generator=gen,
+                                             device=dev) * 0.1)
+            m.running_var.copy_(torch.rand(m.num_features, generator=gen,
+                                           device=dev) + 0.5)
+
+
+def run_eval_path(card: str):
+    """`medseg eval` for classification at full width: a random ResNet18
+    written as the reference's .pt -> test_all_models over a synthetic test
+    split (ResNet50, VGG16/19 and CLIP have no weights and are skipped) ->
+    print_summary -> save_results_to_csv, read back; returns the launches."""
+    from medseg_tpu_torch.core.config import EvalConfig, IMAGENET_MEAN, IMAGENET_STD
+    from medseg_tpu_torch.data.loader import BatchLoader
+    from medseg_tpu_torch.data.synthetic import synthetic_cls
+    from medseg_tpu_torch.eval.csv_io import save_results_to_csv
+    from medseg_tpu_torch.eval.harness import print_summary, test_all_models
+    from medseg_tpu_torch.models.resnet import resnet18
+    from medseg_tpu_torch.ops.augment import preprocess_eval_batch
+    from medseg_tpu_torch.ops.image import normalize_imagenet
+
+    (HERE / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        root = Path(tmp)
+        torch.manual_seed(SEED)
+        model = resnet18()
+        randomize_bn_stats(model, torch.Generator(device="cuda").manual_seed(SEED))
+        (root / "weights" / "classification_models").mkdir(parents=True)
+        torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+                   root / "weights" / "classification_models" / "ResNet18_best_acc.pt")
+        del model
+        loader = BatchLoader(synthetic_cls(n=EVAL_SAMPLES, img_size=SIZE, seed=SEED),
+                             EVAL_BATCH, shuffle=False)
+        cfg = EvalConfig(batch_size=EVAL_BATCH, weights_root=str(root / "weights"),
+                         results_dir=str(root / "results"))
+        logs = []
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        results = test_all_models(loader, None, cfg, log=logs.append)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts("eval path", {"fused_photometric": len(loader)})
+
+        skipped = [m for m in ("ResNet50", "VGG16", "VGG19", "CLIP")
+                   if f"\n[WARNING] Weights not found for {m}" in logs]
+        if list(results) != ["ResNet18"] or len(skipped) != 4:
+            fail(f"eval path: results for {list(results)}, skipped {skipped}; "
+                 f"log: {logs}")
+        res = results["ResNet18"]
+        if res["confusion_matrix"].sum() != EVAL_SAMPLES:
+            fail(f"eval path: confusion matrix sums to {res['confusion_matrix'].sum()}")
+        print_summary(results)
+        cls_csv = root / "results" / "classification_test_results.csv"
+        save_results_to_csv(results, str(cls_csv),
+                            str(root / "results" / "segmentation_test_results.csv"))
+        with open(cls_csv, newline="") as f:
+            rows = list(csv.DictReader(f))
+        want = {k: res[k] for k in ("accuracy", "precision", "recall", "f1")}
+        if (len(rows) != 1 or rows[0].pop("Model") != "ResNet18"
+                or {k: float(v) for k, v in rows[0].items()} != want):
+            fail(f"eval path: the CSV reads back as {rows}, not {want}")
+
+        # one batch: the kernel's eval form is the plain normalization, bit
+        # for bit
+        images, _ = next(iter(loader))
+        x, _ = preprocess_eval_batch(images)
+        if not torch.equal(x, normalize_imagenet(images, IMAGENET_MEAN, IMAGENET_STD)):
+            fail("eval path: the photometric kernel's eval form differs from "
+                 "normalize_imagenet")
+    print(f"[{card}] eval path, ResNet18 float32 (random weights, seed {SEED}), "
+          f"{EVAL_SAMPLES} images at {SIZE}px in {len(loader)} batches of "
+          f"{EVAL_BATCH}: {wall:.3f} s, {EVAL_SAMPLES / wall:.1f} img/s (host "
+          f"clock, loader + preprocess + forward + metrics, weight loading and "
+          f"the four skips included); accuracy {res['accuracy']:.2f}%; "
+          f"confusion matrix sums to {res['confusion_matrix'].sum()}; the CSV "
+          f"reads back to the metrics; photometric kernel == normalize_imagenet "
+          f"on one batch")
+    return launches
+
+
+def run_stem_path(card: str):
+    """The fused-stem inference forward at full width: one batch of B=128
+    through the warp kernel's planar bf16 output and apply_with_stem_kernel
+    on ResNet18 bf16 (random BN running statistics), against model(x) on the
+    same batch in NHWC; returns the launches."""
+    from medseg_tpu_torch.core.config import AugmentConfig, IMAGENET_MEAN, IMAGENET_STD
+    from medseg_tpu_torch.data.synthetic import synthetic_cls
+    from medseg_tpu_torch.models.resnet import apply_with_stem_kernel, resnet18
+    from medseg_tpu_torch.ops.augment import _combined_matrices, sample_augment_params
+    from medseg_tpu_torch.ops.kernels.warp_kernel import warp_affine_kernel
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    torch.manual_seed(SEED + 3)
+    model = resnet18(dtype=torch.bfloat16).eval()
+    randomize_bn_stats(model, gen)
+    images = torch.from_numpy(synthetic_cls(n=BATCH, img_size=SIZE, seed=SEED + 3)
+                              .images).cuda()
+    p = sample_augment_params(gen, BATCH, AugmentConfig())
+    kw = dict(out_dtype=torch.bfloat16, alpha=p.alpha, beta=p.beta,
+              mean=tuple(m * 255.0 for m in IMAGENET_MEAN),
+              std=tuple(s * 255.0 for s in IMAGENET_STD))
+    mats = _combined_matrices(p, SIZE, SIZE)
+
+    with torch.inference_mode():
+        x = warp_affine_kernel(images, mats, **kw)  # NHWC, for model(x)
+        ref = model(x)  # warm-up of the deep stages' cuDNN plans, too
+        torch.cuda.synchronize()
+        reset_counts()
+        planes = warp_affine_kernel(images, mats, planar=True, **kw)
+        logits = apply_with_stem_kernel(model, planes, planar=True)
+        torch.cuda.synchronize()
+        launches = read_counts("stem path", {"warp_affine": 1, "stem_conv_pool": 1})
+
+        if logits.shape != (BATCH, 3) or not torch.isfinite(logits).all():
+            fail(f"stem path: bad logits, shape {tuple(logits.shape)}")
+        err = (logits - ref).abs().max().item()
+        tol = 0.05 * max(1.0, ref.abs().max().item())
+        print(f"[{card}] stem path logits vs model(x) on the same batch: "
+              f"max_abs_err={err:.5f} tol={tol:.5f} (5% of max(1, |logit|max): "
+              f"bf16 rounds at other places through 20 layers)")
+        if not err <= tol:
+            fail(f"stem path disagrees with model(x): {err} > {tol}")
+        stem_ms = cuda_ms(lambda: apply_with_stem_kernel(model, planes, planar=True),
+                          reps=10)
+        fwd_ms = cuda_ms(lambda: model(x), reps=10)
+    print(f"[{card}] stem path, ResNet18 bf16 B={BATCH} at {SIZE}px: "
+          f"apply_with_stem_kernel {stem_ms:.4f} ms/batch, model(x) "
+          f"{fwd_ms:.4f} ms/batch (CUDA events, forward only)")
+    return launches
 
 
 def main() -> int:
@@ -229,7 +594,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     import medseg_tpu_torch
-    from medseg_tpu_torch.ops.kernels import build, warp_kernel
+    from medseg_tpu_torch.ops.kernels import build, photometric, stem_kernel, warp_kernel
 
     if Path(medseg_tpu_torch.__file__).resolve().parents[1] != HERE:
         print("chip_smoke: run it from the root of a checkout", file=sys.stderr)
@@ -243,6 +608,7 @@ def main() -> int:
           f"count={torch.cuda.device_count()} torch={torch.__version__} "
           f"cuda={torch.version.cuda}")
 
+    t_start = time.perf_counter()
     t0 = time.perf_counter()
     libs = build.build_all()
     print(f"[{card}] kernel build: {time.perf_counter() - t0:.3f} s for "
@@ -252,16 +618,24 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
 
-    record = check_warp_kernel(card)
-    launches = run_main_path(card)
+    records = {"warp_affine": check_warp_kernel(card),
+               "fused_photometric": check_photometric_kernel(card),
+               "stem_conv_pool": check_stem_kernel(card)}
+    # each kernel's launches on the path that runs it at the recorded shape
+    launches = {"warp_affine": run_main_path(card)["warp_affine"],
+                "fused_photometric": run_eval_path(card)["fused_photometric"],
+                "stem_conv_pool": run_stem_path(card)["stem_conv_pool"]}
 
-    kernels = [dict(name="warp_affine", route="cuda",
-                    source="medseg_tpu_torch/csrc/" + warp_kernel.SOURCE,
-                    replaces=warp_kernel.REPLACES,
-                    launches=launches["warp_affine"], **record)]
+    modules = {"warp_affine": warp_kernel, "fused_photometric": photometric,
+               "stem_conv_pool": stem_kernel}
+    kernels = [dict(name=name, route="cuda",
+                    source="medseg_tpu_torch/csrc/" + module.SOURCE,
+                    replaces=module.REPLACES, launches=launches[name],
+                    **records[name]) for name, module in modules.items()]
     for k in kernels:
         if k["launches"] < 1:
-            fail(f"kernel {k['name']} was not launched on the main path")
+            fail(f"kernel {k['name']} was not launched on its path")
+    print(f"[{card}] chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -20,15 +20,17 @@
 // padded rows, each row's hat has two taps, pass A's shift at each tap picks
 // two columns, and each column is a reflect-101 2-tap sample of the source
 // row: 16 uint8 taps per channel (4 for nearest), all from one image, which
-// fits in L2 (192 KiB at 256x256x3).  Outputs are written NHWC, float32 or
-// bfloat16 (round to nearest even).
+// fits in L2 (192 KiB at 256x256x3).  Outputs are written NHWC, or planar
+// [B, C*H, W] (channel-major rows, the layout the fused stem kernel reads)
+// straight from the same thread, float32 or bfloat16 (round to nearest
+// even).
 //
 // Bound.  Memory: each uint8 input byte read once and each output written
-// once.  At B=128, 256x256, C=3, bf16 out: 25.2 MB + 50.3 MB = 75.5 MB, about
-// 23 us at 3.35 TB/s.  The arithmetic (~50 flops per tap) is far below the
-// card's rate.  This first version re-reads taps through L1/L2 and stores 2
-// bytes per thread; shared-memory row staging and 16-byte stores are left
-// for a later change.
+// once, in either layout.  At B=128, 256x256, C=3, bf16 out: 25.2 MB +
+// 50.3 MB = 75.5 MB, about 23 us at 3.35 TB/s.  The arithmetic (~50 flops
+// per tap) is far below the card's rate.  This first version re-reads taps
+// through L1/L2 and stores 2 bytes per thread; shared-memory row staging and
+// 16-byte stores are left for a later change.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -154,7 +156,7 @@ template <int C, bool NEAREST, bool EPILOGUE, typename OutT>
 __global__ void warp_affine_kernel(const uint8_t* __restrict__ images,
                                    const float* __restrict__ scalars,
                                    OutT* __restrict__ out, int h, int w,
-                                   Epilogue epi) {
+                                   bool planar, Epilogue epi) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   const int b = blockIdx.z;
@@ -188,7 +190,12 @@ __global__ void warp_affine_kernel(const uint8_t* __restrict__ images,
     for (int ch = 0; ch < C; ++ch) res[ch] = r0[ch] * (1.0f - fb) + r1[ch] * fb;
   }
 
-  OutT* o = out + ((static_cast<size_t>(b) * h + y) * w + x) * C;
+  // NHWC: channel ch at o[ch]; planar: out[b, ch*H + y, x] at o[ch * H*W].
+  const size_t hw = static_cast<size_t>(h) * w;
+  const size_t pixel = static_cast<size_t>(y) * w + x;
+  OutT* o = planar ? out + static_cast<size_t>(b) * C * hw + pixel
+                   : out + (static_cast<size_t>(b) * hw + pixel) * C;
+  const size_t ch_stride = planar ? hw : 1;
   const float alpha = sc[6];
   const float beta = sc[7];
 #pragma unroll
@@ -198,53 +205,55 @@ __global__ void warp_affine_kernel(const uint8_t* __restrict__ images,
       v = fminf(fmaxf(v * alpha + beta * 255.0f, 0.0f), 255.0f);
       v = (v - epi.mean[ch]) / epi.std[ch];
     }
-    store(o + ch, v);
+    store(o + ch * ch_stride, v);
   }
 }
 
 template <int C, bool NEAREST, bool EPILOGUE>
 void launch_typed(const uint8_t* images, const float* scalars, void* out,
-                  bool out_bf16, int b, int h, int w, const Epilogue& epi,
-                  cudaStream_t stream) {
+                  bool out_bf16, int b, int h, int w, bool planar,
+                  const Epilogue& epi, cudaStream_t stream) {
   const dim3 block(32, 8);
   const dim3 grid((w + block.x - 1) / block.x, (h + block.y - 1) / block.y, b);
   if (out_bf16) {
     warp_affine_kernel<C, NEAREST, EPILOGUE><<<grid, block, 0, stream>>>(
-        images, scalars, static_cast<__nv_bfloat16*>(out), h, w, epi);
+        images, scalars, static_cast<__nv_bfloat16*>(out), h, w, planar, epi);
   } else {
     warp_affine_kernel<C, NEAREST, EPILOGUE><<<grid, block, 0, stream>>>(
-        images, scalars, static_cast<float*>(out), h, w, epi);
+        images, scalars, static_cast<float*>(out), h, w, planar, epi);
   }
 }
 
 template <int C>
 void launch_channels(const uint8_t* images, const float* scalars, void* out,
                      bool out_bf16, int b, int h, int w, bool nearest,
-                     bool epilogue, const Epilogue& epi, cudaStream_t stream) {
+                     bool epilogue, bool planar, const Epilogue& epi,
+                     cudaStream_t stream) {
   if (nearest) {
     if (epilogue)
-      launch_typed<C, true, true>(images, scalars, out, out_bf16, b, h, w, epi, stream);
+      launch_typed<C, true, true>(images, scalars, out, out_bf16, b, h, w, planar, epi, stream);
     else
-      launch_typed<C, true, false>(images, scalars, out, out_bf16, b, h, w, epi, stream);
+      launch_typed<C, true, false>(images, scalars, out, out_bf16, b, h, w, planar, epi, stream);
   } else {
     if (epilogue)
-      launch_typed<C, false, true>(images, scalars, out, out_bf16, b, h, w, epi, stream);
+      launch_typed<C, false, true>(images, scalars, out, out_bf16, b, h, w, planar, epi, stream);
     else
-      launch_typed<C, false, false>(images, scalars, out, out_bf16, b, h, w, epi, stream);
+      launch_typed<C, false, false>(images, scalars, out, out_bf16, b, h, w, planar, epi, stream);
   }
 }
 
 }  // namespace
 
 // images: uint8 [B,H,W,C] contiguous; scalars: float32 [B,8] contiguous;
-// out: [B,H,W,C] float32 (out_bf16 == 0) or bfloat16.  mean/std hold C
+// out: [B,H,W,C], or [B,C*H,W] when planar != 0, float32 (out_bf16 == 0) or
+// bfloat16.  mean/std hold C
 // values each and are read only when epilogue != 0.  Returns the
 // cudaGetLastError() code of the launch (0 on success).
 extern "C" int medseg_warp_affine_u8(const void* images, const void* scalars,
                                      void* out, int b, int h, int w, int c,
                                      int nearest, int out_bf16, int epilogue,
-                                     const float* mean, const float* std,
-                                     void* stream) {
+                                     int planar, const float* mean,
+                                     const float* std, void* stream) {
   if (b < 1 || h < 2 || w < 2 || c < 1 || c > kMaxChannels)
     return static_cast<int>(cudaErrorInvalidValue);
   Epilogue epi = {};
@@ -258,10 +267,10 @@ extern "C" int medseg_warp_affine_u8(const void* images, const void* scalars,
   const auto* sc = static_cast<const float*>(scalars);
   const auto st = static_cast<cudaStream_t>(stream);
   switch (c) {
-    case 1: launch_channels<1>(img, sc, out, out_bf16, b, h, w, nearest, epilogue, epi, st); break;
-    case 2: launch_channels<2>(img, sc, out, out_bf16, b, h, w, nearest, epilogue, epi, st); break;
-    case 3: launch_channels<3>(img, sc, out, out_bf16, b, h, w, nearest, epilogue, epi, st); break;
-    default: launch_channels<4>(img, sc, out, out_bf16, b, h, w, nearest, epilogue, epi, st); break;
+    case 1: launch_channels<1>(img, sc, out, out_bf16, b, h, w, nearest, epilogue, planar, epi, st); break;
+    case 2: launch_channels<2>(img, sc, out, out_bf16, b, h, w, nearest, epilogue, planar, epi, st); break;
+    case 3: launch_channels<3>(img, sc, out, out_bf16, b, h, w, nearest, epilogue, planar, epi, st); break;
+    default: launch_channels<4>(img, sc, out, out_bf16, b, h, w, nearest, epilogue, planar, epi, st); break;
   }
   return static_cast<int>(cudaGetLastError());
 }

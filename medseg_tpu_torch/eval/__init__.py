@@ -1,1 +1,1 @@
-"""Evaluation metrics."""
+"""Evaluation: metrics, the zoo harness and the reference-schema CSV."""

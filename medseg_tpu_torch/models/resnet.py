@@ -11,6 +11,11 @@ Inputs are NHWC, as in the JAX package.  Inside, the NCHW view of the NHWC
 tensor is channels_last memory, which cuDNN takes without a copy.
 Parameters and BN statistics are float32; convs and BN compute in `dtype`;
 the pooled features and the head are float32.
+
+`apply_with_stem_kernel` (medseg_tpu/models/resnet.py:202
+`apply_with_pallas_stem`) is the inference forward through the fused stem
+kernel: bn1 folded into conv1, one kernel for conv + BN + ReLU + maxpool,
+and the deep stages fed through `skip_stem`.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from medseg_tpu_torch.core.device import DeviceLike, resolve_device
 from medseg_tpu_torch.core.registry import register_model
 from medseg_tpu_torch.nn.blocks import (BatchNorm2d, ClassifierHead, Conv2d,
                                         global_avg_pool, max_pool)
+from medseg_tpu_torch.ops.kernels.stem_kernel import fold_bn, stem_conv_pool
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -111,9 +117,14 @@ class ResNetEncoder(nn.Module):
         self.out_channels = in_ch
         self.num_stages = len(stage_sizes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.bn1(self.conv1(_nchw(x))))
-        x = _nchw(max_pool(_nhwc(x), 3, 2, padding=1))
+    def forward(self, x: torch.Tensor, skip_stem: bool = False) -> torch.Tensor:
+        """skip_stem: x is already the pooled stem output [B,H/4,W/4,64]
+        (from apply_with_stem_kernel); conv1/bn1 are left unused."""
+        if skip_stem:
+            x = _nchw(x)
+        else:
+            x = F.relu(self.bn1(self.conv1(_nchw(x))))
+            x = _nchw(max_pool(_nhwc(x), 3, 2, padding=1))
         for stage in range(self.num_stages):
             x = getattr(self, f"layer{stage + 1}")(x)
         return _nhwc(x)
@@ -129,9 +140,38 @@ class ResNetClassifier(ResNetEncoder):
         super().__init__(block, stage_sizes, dtype)
         self.fc = ClassifierHead(self.out_channels, num_classes, dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        feats = super().forward(x)
+    def forward(self, x: torch.Tensor, skip_stem: bool = False) -> torch.Tensor:
+        feats = super().forward(x, skip_stem)
         return self.fc(global_avg_pool(feats).to(torch.float32))
+
+
+def apply_with_stem_kernel(model: ResNetClassifier, x: torch.Tensor,
+                           planar: bool = False) -> torch.Tensor:
+    """Inference forward with the fused stem kernel
+    (ops/kernels/stem_kernel.py): folds bn1's running stats into conv1's
+    weights in float32, casts the folded weights to the model's dtype, runs
+    conv + BN + ReLU + maxpool in one kernel, and feeds the pooled map to
+    the unchanged deep stages through skip_stem.
+
+    x: [B, H, W, 3] model-input images (normalized), or the warp kernel's
+    planar [B, 3H, W] layout when planar=True (the NHWC transpose never
+    materializes).  H and W multiples of 4.  Eval mode only: the fold uses
+    the running statistics.
+    """
+    if model.training:
+        raise ValueError("apply_with_stem_kernel is inference-only: call "
+                         "model.eval() first")
+    dtype = model.conv1.compute_dtype
+    bn = model.bn1
+    g, b = fold_bn(bn.weight.float(), bn.bias.float(), bn.running_mean.float(),
+                   bn.running_var.float(), bn.eps)
+    weight = (model.conv1.weight.float() * g[:, None, None, None]).to(dtype)
+    if not planar:
+        bsz, h, w, c = x.shape
+        x = x.permute(0, 3, 1, 2).reshape(bsz, c * h, w)
+    pooled = stem_conv_pool(x.to(dtype).contiguous(), weight.contiguous(),
+                            b.to(dtype))
+    return model(pooled, skip_stem=True)
 
 
 def _build(block, stage_sizes, num_classes, dtype, device, **kw):

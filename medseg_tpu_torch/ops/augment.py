@@ -14,7 +14,9 @@ std 1) that is warped bilinearly and thresholded at 127.5*alpha + 255*beta.
 For CPU tensors it warps with the kernel's plain version, applies
 brightness/contrast and normalization as separate steps, and warps masks
 with true nearest sampling, so masks can differ on region edges between
-the two devices.
+the two devices.  preprocess_eval_batch makes the same split: on the card
+it is one launch of the photometric kernel with alpha=1, beta=0 and no
+flip, which computes the CPU branch's normalization bit for bit.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 
 from medseg_tpu_torch.core.config import AugmentConfig
 from medseg_tpu_torch.ops import image as I
+from medseg_tpu_torch.ops.kernels.photometric import fused_photometric
 from medseg_tpu_torch.ops.kernels.warp_kernel import warp_affine_kernel
 from medseg_tpu_torch.ops.warp_fast import (fast_warp_supports,
                                             photometric_threshold_ok)
@@ -86,9 +89,10 @@ def _combined_matrices(params: AugmentParams, h: int, w: int) -> torch.Tensor:
 
 
 def _on_card(images: torch.Tensor) -> bool:
-    """Whether augment_batch takes the fused-kernel branch (the device split
-    above); a test may force the branch onto CPU tensors, where the kernel
-    wrapper computes it with the plain version."""
+    """Whether augment_batch and preprocess_eval_batch take the kernel
+    branch (the device split above); a test may force the branch onto CPU
+    tensors, where the kernel wrappers compute it with their plain
+    versions."""
     return images.is_cuda
 
 
@@ -164,7 +168,14 @@ def preprocess_eval_batch(
     out_dtype=torch.float32,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Val/test preprocessing: normalize only (reference utils/trainer.py:71-83)."""
-    x = I.normalize_imagenet(images, cfg.mean, cfg.std).to(out_dtype)
+    if _on_card(images):
+        b = images.shape[0]
+        ones = torch.ones(b, device=images.device)
+        x = fused_photometric(images, ones, torch.zeros_like(ones),
+                              torch.zeros(b, dtype=torch.bool, device=images.device),
+                              out_dtype, cfg.mean, cfg.std)
+    else:
+        x = I.normalize_imagenet(images, cfg.mean, cfg.std).to(out_dtype)
     m = None
     if masks is not None:
         m = (masks[..., None].to(torch.float32) / 255.0).to(out_dtype)

@@ -24,9 +24,10 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "medseg_tpu_torch"
 # Every kernel source of the port; chip_smoke.py builds them all at once.
-SOURCES = ("warp_affine.cu",)
+SOURCES = ("warp_affine.cu", "photometric.cu", "stem_conv_pool.cu")
 # -fmad=false: no multiply-add contraction, so the kernels repeat their plain
-# PyTorch versions' float32 arithmetic exactly.  -Xptxas -v: report each
+# PyTorch versions' float32 arithmetic exactly (a kernel that wants fused
+# multiply-adds, as the stem's conv does, calls fmaf explicitly).  -Xptxas -v: report each
 # kernel's registers, shared memory and spills into the build log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -11,9 +11,9 @@ PyTorch version is ops/warp_fast.warp_affine_fast, with which it agrees bit
 for bit in float32.
 
 For a CPU tensor the wrapper runs the plain version.  For a CUDA tensor it
-launches the kernel or raises; it never falls back.  `planar` output (the
-JAX kernel's [B, C*H, W] layout) is not offered: only the space-to-depth and
-stem paths use it, and they are not ported yet.
+launches the kernel or raises; it never falls back.  `planar=True` returns
+the JAX kernel's [B, C*H, W] layout (channel-major rows), which the kernel
+writes directly; the fused stem (ops/kernels/stem_kernel.py) reads it.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ def _launcher():
     from medseg_tpu_torch.ops.kernels.build import load_library
 
     fn = load_library(SOURCE).cdll.medseg_warp_affine_u8
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
                    + [ctypes.POINTER(ctypes.c_float)] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -74,17 +74,19 @@ def warp_affine_kernel(images: torch.Tensor, matrices: torch.Tensor,
                        alpha: Optional[torch.Tensor] = None,
                        beta: Optional[torch.Tensor] = None,
                        mean: Optional[Sequence[float]] = None,
-                       std: Optional[Sequence[float]] = None) -> torch.Tensor:
+                       std: Optional[Sequence[float]] = None,
+                       planar: bool = False) -> torch.Tensor:
     """Two-pass warp of uint8 [B,H,W,C] images by dst->src matrices [B,2,3].
 
     Arguments as in JAX's warp_affine_pallas: with alpha/beta [B] and
     per-channel mean/std on the 0..255 scale, the epilogue
     clip(x*alpha + 255*beta, 0, 255), then (x - mean_c)/std_c, runs in the
-    same pass.  Returns [B,H,W,C] in `out_dtype` (float32 or bfloat16).
+    same pass.  Returns [B,H,W,C], or [B,C*H,W] when `planar`, in
+    `out_dtype` (float32 or bfloat16).
     """
     if images.device.type == "cpu":
         return warp_affine_fast(images, matrices, nearest, out_dtype,
-                                alpha, beta, mean, std)
+                                alpha, beta, mean, std, planar)
     if images.device.type != "cuda":
         raise ValueError(f"no warp kernel for device {images.device}")
     _check(images, matrices, out_dtype, alpha, beta, mean, std)
@@ -93,7 +95,8 @@ def warp_affine_kernel(images: torch.Tensor, matrices: torch.Tensor,
     extra = (torch.stack([alpha, beta], -1).to(torch.float32) if epilogue
              else torch.zeros(b, 2, device=images.device))
     scalars = torch.cat([warp_scalars(matrices), extra], -1).contiguous()
-    out = torch.empty(images.shape, dtype=out_dtype, device=images.device)
+    shape = (b, c * h, w) if planar else (b, h, w, c)
+    out = torch.empty(shape, dtype=out_dtype, device=images.device)
     mean_arr = _FloatArray(*(mean or ()))
     std_arr = _FloatArray(*(std or ()))
     with torch.cuda.device(images.device):
@@ -101,7 +104,7 @@ def warp_affine_kernel(images: torch.Tensor, matrices: torch.Tensor,
         err = _launcher()(images.data_ptr(), scalars.data_ptr(), out.data_ptr(),
                           b, h, w, c, int(nearest),
                           int(out_dtype == torch.bfloat16), int(epilogue),
-                          mean_arr, std_arr, stream)
+                          int(planar), mean_arr, std_arr, stream)
     if err != 0:
         raise RuntimeError(f"warp kernel launch failed with CUDA error {err}")
     warp_affine_kernel.launches += 1

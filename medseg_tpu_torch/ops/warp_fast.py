@@ -118,14 +118,16 @@ def warp_affine_fast(images: torch.Tensor, matrices: torch.Tensor,
                      alpha: Optional[torch.Tensor] = None,
                      beta: Optional[torch.Tensor] = None,
                      mean: Optional[Sequence[float]] = None,
-                     std: Optional[Sequence[float]] = None) -> torch.Tensor:
+                     std: Optional[Sequence[float]] = None,
+                     planar: bool = False) -> torch.Tensor:
     """Plain PyTorch two-pass warp, with the kernel's optional epilogue.
 
     images [B,H,W,C] (any real dtype), matrices [B,2,3] dst->src in unpadded
     coordinates.  `nearest=True` samples nearest in both passes (masks stay
     binary).  With alpha/beta [B] and per-channel mean/std on the 0..255
     scale, the epilogue clip(x*alpha + 255*beta, 0, 255), then
-    (x - mean_c)/std_c is applied.  Returns [B,H,W,C] in `out_dtype`.
+    (x - mean_c)/std_c is applied.  Returns [B,H,W,C] in `out_dtype`, or
+    the planar [B,C*H,W] layout (channel-major rows) when `planar`.
     """
     b, h, w, c = images.shape
     dev = images.device
@@ -185,4 +187,6 @@ def warp_affine_fast(images: torch.Tensor, matrices: torch.Tensor,
         m = torch.tensor(mean, dtype=torch.float32, device=dev)
         sd = torch.tensor(std, dtype=torch.float32, device=dev)
         out = (out - m) / sd
+    if planar:
+        out = out.permute(0, 3, 1, 2).reshape(b, c * h, w)
     return out.to(out_dtype)

@@ -9,10 +9,12 @@ import numpy as np
 import pytest
 import torch
 
+from medseg_tpu_torch.core.config import EvalConfig
 from medseg_tpu_torch.data.loader import BatchLoader
 from medseg_tpu_torch.data.synthetic import synthetic_cls
+from medseg_tpu_torch.eval import harness
 from medseg_tpu_torch.models.resnet import resnet18
-from medseg_tpu_torch.ops.kernels import warp_kernel
+from medseg_tpu_torch.ops.kernels import build, photometric, stem_kernel, warp_kernel
 from medseg_tpu_torch.ops.warp_fast import warp_affine_fast
 
 torch.set_num_threads(1)
@@ -34,7 +36,7 @@ def test_import_of_every_module_leaves_jax_out():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20  # every subpackage and module
+    assert int(out.stdout.split()[-1]) >= 25  # every subpackage and module
 
 
 def _imported_roots(path: Path):
@@ -58,10 +60,31 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         resnet18()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         BatchLoader(ds, 2, shuffle=False)
+    cpu_loader = BatchLoader(ds, 2, shuffle=False, device="cpu")
+    cfg = EvalConfig(weights_root="/nonexistent")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        harness.evaluate_model("ResNet18", cpu_loader, None, cfg, log=print)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        harness.test_all_models(cpu_loader, None, cfg, log=print)
     # an explicit CPU request is honoured
     assert next(resnet18(device="cpu").parameters()).device.type == "cpu"
-    images, _ = next(iter(BatchLoader(ds, 2, shuffle=False, device="cpu")))
+    images, _ = next(iter(cpu_loader))
     assert images.device.type == "cpu"
+    assert harness.test_all_models(cpu_loader, None, cfg, log=lambda *_: None,
+                                   device="cpu") == {}
+
+
+def test_every_kernel_source_is_built_and_wrapped():
+    """chip_smoke.py builds build.SOURCES; each has a wrapper that names it,
+    the TPU kernel it replaces, and a launch count."""
+    wrappers = {warp_kernel: warp_kernel.warp_affine_kernel,
+                photometric: photometric.fused_photometric,
+                stem_kernel: stem_kernel.stem_conv_pool}
+    assert sorted(m.SOURCE for m in wrappers) == sorted(build.SOURCES)
+    assert sorted(p.name for p in build.CSRC.glob("*.cu")) == sorted(build.SOURCES)
+    for module, fn in wrappers.items():
+        assert module.REPLACES.startswith("medseg_tpu/ops/pallas/")
+        assert isinstance(fn.launches, int)
 
 
 def test_registry_finds_the_model_factories():
@@ -82,11 +105,12 @@ def _warp_inputs(b=2, size=16, c=3):
     return images, mats.contiguous()
 
 
-def test_kernel_wrapper_runs_plain_version_only_for_cpu_tensors():
+@pytest.mark.parametrize("planar", [False, True])
+def test_kernel_wrapper_runs_plain_version_only_for_cpu_tensors(planar):
     images, mats = _warp_inputs()
     before = warp_kernel.warp_affine_kernel.launches
-    got = warp_kernel.warp_affine_kernel(images, mats)
-    assert torch.equal(got, warp_affine_fast(images, mats))
+    got = warp_kernel.warp_affine_kernel(images, mats, planar=planar)
+    assert torch.equal(got, warp_affine_fast(images, mats, planar=planar))
     assert warp_kernel.warp_affine_kernel.launches == before  # no launch on CPU
     with pytest.raises(ValueError, match="no warp kernel"):
         warp_kernel.warp_affine_kernel(images.to("meta"), mats.to("meta"))

@@ -129,6 +129,47 @@ def test_plain_warp_epilogue_matches_pallas_interpret(out_dtype):
         assert (np.abs(got - want) <= _bf16_ulp(want) + 1e-4).all()
 
 
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_plain_warp_planar_matches_pallas_interpret(out_dtype):
+    """planar=True gives the JAX kernel's [B, C*H, W] layout: within 0.01 of
+    the Pallas kernel in interpret mode (the FMA delta of
+    tests/test_pallas_kernels.py:68; one bf16 ulp on top for bfloat16), and
+    exactly the port's own NHWC output, transposed."""
+    rng = np.random.default_rng(6)
+    n = 2
+    imgs = rng.integers(0, 256, (n, SIZE, SIZE, 3), np.uint8)
+    mats = _matrices(rng, n, flip=np.array([True, False]))
+    alpha = rng.uniform(0.9, 1.1, n).astype(np.float32)
+    beta = rng.uniform(-0.1, 0.1, n).astype(np.float32)
+    kw = dict(mean=tuple(m * 255.0 for m in IMAGENET_MEAN),
+              std=tuple(s * 255.0 for s in IMAGENET_STD))
+    want = np.asarray(warp_affine_pallas(
+        jnp.asarray(imgs), jnp.asarray(mats), out_dtype=getattr(jnp, out_dtype),
+        interpret=True, alpha=jnp.asarray(alpha), beta=jnp.asarray(beta),
+        planar=True, **kw).astype(jnp.float32))
+    args = (torch.from_numpy(imgs), torch.from_numpy(mats))
+    kw.update(out_dtype=getattr(torch, out_dtype), alpha=torch.from_numpy(alpha),
+              beta=torch.from_numpy(beta))
+    got = warp_affine_fast(*args, planar=True, **kw)
+    assert got.shape == want.shape == (n, 3 * SIZE, SIZE)
+    assert got.dtype == getattr(torch, out_dtype) and got.is_contiguous()
+    tol = 0.01 + (_bf16_ulp(want) if out_dtype == "bfloat16" else 0.0)
+    assert (np.abs(got.float().numpy() - want) <= tol).all()
+    nhwc = warp_affine_fast(*args, **kw)
+    assert torch.equal(got, nhwc.permute(0, 3, 1, 2).reshape(n, 3 * SIZE, SIZE))
+
+
+def test_plain_warp_planar_without_epilogue_is_the_transpose():
+    """Masks and raw warps keep the layout rule: C=1 nearest and C=4 bilinear."""
+    imgs, mats, _ = _fast_reference(False)
+    for c, nearest in ((1, True), (4, False)):
+        x = torch.from_numpy(np.ascontiguousarray(imgs[..., :c]))
+        m = torch.from_numpy(mats)
+        got = warp_affine_fast(x, m, nearest=nearest, planar=True)
+        nhwc = warp_affine_fast(x, m, nearest=nearest)
+        assert torch.equal(got, nhwc.permute(0, 3, 1, 2).reshape(3, c * SIZE, SIZE))
+
+
 def test_plain_warp_identity_and_flip_are_exact():
     rng = np.random.default_rng(2)
     imgs = rng.integers(0, 256, (2, SIZE, SIZE, 3), np.uint8)
