@@ -106,21 +106,30 @@ def fused_photometric(images: torch.Tensor, alpha: torch.Tensor,
                                            out_dtype, mean, std)
     if images.device.type != "cuda":
         raise ValueError(f"no photometric kernel for device {images.device}")
+    with torch.cuda.device(images.device):
+        stream = torch.cuda.current_stream(images.device).cuda_stream
+        out = _run(_launcher(), stream, images, alpha, beta, flip, out_dtype,
+                   mean, std)
+    fused_photometric.launches += 1
+    return out
+
+
+fused_photometric.launches = 0
+
+
+def _run(launch, stream, images, alpha, beta, flip, out_dtype, mean, std):
+    """The CUDA branch with its launcher and stream given: validate, pack
+    the per-sample scalars, allocate the output on the images' device and
+    launch.  The CPU tests pass a host build of the source here."""
     _check(images, alpha, beta, flip, out_dtype, mean, std)
     b, h, w, c = images.shape
     scalars = torch.stack([alpha.to(torch.float32), beta.to(torch.float32),
                            flip.to(torch.float32)], -1).contiguous()
     out = torch.empty(images.shape, dtype=out_dtype, device=images.device)
     mean_arr, std_arr = _norm_arrays(tuple(mean), tuple(std))
-    with torch.cuda.device(images.device):
-        stream = torch.cuda.current_stream(images.device).cuda_stream
-        err = _launcher()(images.data_ptr(), scalars.data_ptr(), out.data_ptr(),
-                          b, h, w, c, int(out_dtype == torch.bfloat16),
-                          mean_arr, std_arr, stream)
+    err = launch(images.data_ptr(), scalars.data_ptr(), out.data_ptr(),
+                 b, h, w, c, int(out_dtype == torch.bfloat16),
+                 mean_arr, std_arr, stream)
     if err != 0:
         raise RuntimeError(f"photometric kernel launch failed with CUDA error {err}")
-    fused_photometric.launches += 1
     return out
-
-
-fused_photometric.launches = 0

@@ -91,20 +91,28 @@ def stem_conv_pool(planes: torch.Tensor, weight: torch.Tensor,
         return stem_conv_pool_reference(planes, weight, bias)
     if planes.device.type != "cuda":
         raise ValueError(f"no stem kernel for device {planes.device}")
-    _check(planes, weight, bias)
-    b, ch, w = planes.shape
-    h = ch // 3
-    out = torch.empty((b, h // 4, w // 4, OUT_CHANNELS), dtype=planes.dtype,
-                      device=planes.device)
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream(planes.device).cuda_stream
-        err = _launcher()(planes.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-                          out.data_ptr(), b, h, w,
-                          int(planes.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"stem kernel launch failed with CUDA error {err}")
+        out = _run(_launcher(), stream, planes, weight, bias)
     stem_conv_pool.launches += 1
     return out
 
 
 stem_conv_pool.launches = 0
+
+
+def _run(launch, stream, planes, weight, bias):
+    """The CUDA branch with its launcher and stream given: validate,
+    allocate the output on the planes' device and launch.  The CPU tests
+    pass a host build of the source here."""
+    _check(planes, weight, bias)
+    b, ch, w = planes.shape
+    h = ch // 3
+    out = torch.empty((b, h // 4, w // 4, OUT_CHANNELS), dtype=planes.dtype,
+                      device=planes.device)
+    err = launch(planes.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+                 out.data_ptr(), b, h, w, int(planes.dtype == torch.bfloat16),
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"stem kernel launch failed with CUDA error {err}")
+    return out

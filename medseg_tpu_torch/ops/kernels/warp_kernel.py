@@ -89,6 +89,22 @@ def warp_affine_kernel(images: torch.Tensor, matrices: torch.Tensor,
                                 alpha, beta, mean, std, planar)
     if images.device.type != "cuda":
         raise ValueError(f"no warp kernel for device {images.device}")
+    with torch.cuda.device(images.device):
+        stream = torch.cuda.current_stream(images.device).cuda_stream
+        out = _run(_launcher(), stream, images, matrices, nearest, out_dtype,
+                   alpha, beta, mean, std, planar)
+    warp_affine_kernel.launches += 1
+    return out
+
+
+warp_affine_kernel.launches = 0
+
+
+def _run(launch, stream, images, matrices, nearest, out_dtype, alpha, beta,
+         mean, std, planar):
+    """The CUDA branch with its launcher and stream given: validate, pack
+    the per-sample scalars, allocate the output on the images' device and
+    launch.  The CPU tests pass a host build of the source here."""
     _check(images, matrices, out_dtype, alpha, beta, mean, std)
     b, h, w, c = images.shape
     epilogue = mean is not None
@@ -97,18 +113,10 @@ def warp_affine_kernel(images: torch.Tensor, matrices: torch.Tensor,
     scalars = torch.cat([warp_scalars(matrices), extra], -1).contiguous()
     shape = (b, c * h, w) if planar else (b, h, w, c)
     out = torch.empty(shape, dtype=out_dtype, device=images.device)
-    mean_arr = _FloatArray(*(mean or ()))
-    std_arr = _FloatArray(*(std or ()))
-    with torch.cuda.device(images.device):
-        stream = torch.cuda.current_stream(images.device).cuda_stream
-        err = _launcher()(images.data_ptr(), scalars.data_ptr(), out.data_ptr(),
-                          b, h, w, c, int(nearest),
-                          int(out_dtype == torch.bfloat16), int(epilogue),
-                          int(planar), mean_arr, std_arr, stream)
+    err = launch(images.data_ptr(), scalars.data_ptr(), out.data_ptr(),
+                 b, h, w, c, int(nearest), int(out_dtype == torch.bfloat16),
+                 int(epilogue), int(planar), _FloatArray(*(mean or ())),
+                 _FloatArray(*(std or ())), stream)
     if err != 0:
         raise RuntimeError(f"warp kernel launch failed with CUDA error {err}")
-    warp_affine_kernel.launches += 1
     return out
-
-
-warp_affine_kernel.launches = 0

@@ -1,6 +1,6 @@
 """The CUDA sources themselves, on the CPU: each csrc/*.cu is built with g++
 against tests/cuda_emulation.h (threads of a block as std::threads) and
-called through its wrapper's own ctypes launcher, on CPU tensors, against
+called through its wrapper's own CUDA branch, on CPU tensors, against
 the kernel's plain PyTorch version.  This checks each kernel's indexing,
 tiling, borders and layouts here; only the chip run shows that nvcc builds
 it and that it is right and fast on the card."""
@@ -20,7 +20,7 @@ from medseg_tpu_torch.ops.kernels import build
 from medseg_tpu_torch.ops.kernels import photometric as P
 from medseg_tpu_torch.ops.kernels import stem_kernel as S
 from medseg_tpu_torch.ops.kernels import warp_kernel as W
-from medseg_tpu_torch.ops.warp_fast import warp_affine_fast, warp_scalars
+from medseg_tpu_torch.ops.warp_fast import warp_affine_fast
 
 torch.set_num_threads(1)
 
@@ -54,54 +54,15 @@ def emulated(tmp_path_factory):
     return libs
 
 
-def _launcher(module, emulated, monkeypatch):
-    """The wrapper's own launcher (argument types and all), bound to the
-    emulated build instead of nvcc's."""
+def _run(module, emulated, monkeypatch):
+    """The wrapper's own CUDA branch (checks, packing, allocation and its
+    launcher's argument types), bound to the emulated build instead of
+    nvcc's and called on CPU tensors with stream 0."""
     import ctypes
 
     monkeypatch.setattr(build, "load_library", lambda source: build.Library(
         ctypes.CDLL(str(emulated[source])), ""))
-    return module._launcher.__wrapped__()
-
-
-# The three functions below repeat their wrappers' CUDA branches on CPU
-# tensors (stream 0).
-
-def _warp(launch, images, matrices, nearest=False, out_dtype=torch.float32,
-          alpha=None, beta=None, mean=None, std=None, planar=False):
-    W._check(images, matrices, out_dtype, alpha, beta, mean, std)
-    b, h, w, c = images.shape
-    epilogue = mean is not None
-    extra = torch.stack([alpha, beta], -1).float() if epilogue else torch.zeros(b, 2)
-    scalars = torch.cat([warp_scalars(matrices), extra], -1).contiguous()
-    out = torch.empty((b, c * h, w) if planar else (b, h, w, c), dtype=out_dtype)
-    assert launch(images.data_ptr(), scalars.data_ptr(), out.data_ptr(), b, h, w,
-                  c, int(nearest), int(out_dtype == torch.bfloat16), int(epilogue),
-                  int(planar), W._FloatArray(*(mean or ())),
-                  W._FloatArray(*(std or ())), None) == 0
-    return out
-
-
-def _photometric(launch, images, alpha, beta, flip, out_dtype):
-    mean, std = IMAGENET_MEAN, IMAGENET_STD
-    P._check(images, alpha, beta, flip, out_dtype, mean, std)
-    b, h, w, c = images.shape
-    scalars = torch.stack([alpha.float(), beta.float(), flip.float()], -1).contiguous()
-    out = torch.empty(images.shape, dtype=out_dtype)
-    assert launch(images.data_ptr(), scalars.data_ptr(), out.data_ptr(), b, h, w, c,
-                  int(out_dtype == torch.bfloat16), *P._norm_arrays(mean, std),
-                  None) == 0
-    return out
-
-
-def _stem(launch, planes, weight, bias):
-    S._check(planes, weight, bias)
-    b, ch, w = planes.shape
-    out = torch.empty((b, ch // 12, w // 4, 64), dtype=planes.dtype)
-    assert launch(planes.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-                  out.data_ptr(), b, ch // 3, w, int(planes.dtype == torch.bfloat16),
-                  None) == 0
-    return out
+    return functools.partial(module._run, module._launcher.__wrapped__(), None)
 
 
 @functools.lru_cache(maxsize=None)
@@ -117,34 +78,35 @@ def _warp_inputs(channels, size=24, b=2):
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_warp_source_equals_plain_version(emulated, monkeypatch, out_dtype, planar):
     """With the epilogue, NHWC or planar, float32 or bf16: bit for bit."""
-    launch = _launcher(W, emulated, monkeypatch)
+    run = _run(W, emulated, monkeypatch)
     images, mats, p = _warp_inputs(3)
     kw = dict(out_dtype=out_dtype, alpha=p.alpha, beta=p.beta, planar=planar,
               mean=tuple(m * 255.0 for m in IMAGENET_MEAN),
               std=tuple(s * 255.0 for s in IMAGENET_STD))
-    assert torch.equal(_warp(launch, images, mats, **kw),
+    assert torch.equal(run(images, mats, nearest=False, **kw),
                        warp_affine_fast(images, mats, **kw))
 
 
 @pytest.mark.parametrize("channels,nearest", [(1, True), (4, False)])
 def test_warp_source_without_epilogue(emulated, monkeypatch, channels, nearest):
-    launch = _launcher(W, emulated, monkeypatch)
+    run = _run(W, emulated, monkeypatch)
     images, mats, _ = _warp_inputs(channels)
-    assert torch.equal(_warp(launch, images, mats, nearest=nearest),
+    assert torch.equal(run(images, mats, nearest, torch.float32, None, None, None,
+                           None, False),
                        warp_affine_fast(images, mats, nearest=nearest))
 
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_photometric_source_equals_plain_version(emulated, monkeypatch, out_dtype):
     """Flips, alpha and beta per sample, an odd width: bit for bit."""
-    launch = _launcher(P, emulated, monkeypatch)
+    run = _run(P, emulated, monkeypatch)
     gen = torch.Generator().manual_seed(1)
     images = torch.randint(0, 256, (3, 10, 37, 3), generator=gen, dtype=torch.uint8)
     alpha = 0.9 + 0.2 * torch.rand(3, generator=gen)
     beta = 0.2 * torch.rand(3, generator=gen) - 0.1
     flip = torch.tensor([True, False, True])
     assert torch.equal(
-        _photometric(launch, images, alpha, beta, flip, out_dtype),
+        run(images, alpha, beta, flip, out_dtype, IMAGENET_MEAN, IMAGENET_STD),
         P.fused_photometric_reference(images, alpha, beta, flip, out_dtype))
 
 
@@ -156,13 +118,13 @@ def test_stem_source_equals_plain_version(emulated, monkeypatch, shape, dtype):
     of 8) and an odd batch.  float32: within 1e-4 (summation order).
     bf16: one bf16 ulp of the larger magnitude, plus 1e-5 where the float32
     sums straddle ReLU's zero."""
-    launch = _launcher(S, emulated, monkeypatch)
+    run = _run(S, emulated, monkeypatch)
     b, h, w = shape
     gen = torch.Generator().manual_seed(h * w)
     planes = torch.randn(b, 3 * h, w, generator=gen).to(dtype)
     weight = (torch.randn(64, 3, 7, 7, generator=gen) * 0.1).to(dtype)
     bias = (torch.randn(64, generator=gen) * 0.1).to(dtype)
-    got = _stem(launch, planes, weight, bias).float()
+    got = run(planes, weight, bias).float()
     want = S.stem_conv_pool_reference(planes, weight, bias).float()
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
@@ -173,11 +135,11 @@ def test_stem_source_equals_plain_version(emulated, monkeypatch, shape, dtype):
 
 
 def test_stem_source_borders_on_a_constant_image(emulated, monkeypatch):
-    launch = _launcher(S, emulated, monkeypatch)
+    run = _run(S, emulated, monkeypatch)
     gen = torch.Generator().manual_seed(2)
     weight = torch.randn(64, 3, 7, 7, generator=gen) * 0.1
     bias = torch.randn(64, generator=gen) * 0.1
     planes = torch.ones(2, 96, 32)
-    torch.testing.assert_close(_stem(launch, planes, weight, bias),
+    torch.testing.assert_close(run(planes, weight, bias),
                                S.stem_conv_pool_reference(planes, weight, bias),
                                atol=1e-4, rtol=0)
