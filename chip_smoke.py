@@ -11,7 +11,7 @@ Run from the root of a checkout.  It
    shapes its paths give it, with the tolerance stated per case, and times
    kernel, plain version and, where there is one, a library call, as device
    time from torch.profiler (the kernel's own launches only, for the
-   kernel);
+   kernel; the median of three sessions);
 4. drives three paths at full width, each with every launch count set to 0
    just before it and read just after:
    - aug+infer: a synthetic packed set at 256px, BatchLoader(device_cache=
@@ -24,7 +24,7 @@ Run from the root of a checkout.  It
      save_results_to_csv, read back with csv;
    - fused stem: the warp kernel's planar bf16 output -> apply_with_stem_
      kernel (one stem-kernel launch) on ResNet18 bf16, against model(x) on
-     the same batch in NHWC;
+     the same batch in NHWC, both timed by device time in turns;
 5. prints one JSON line with every kernel's launches, error and times, and
    as its last line {"ok": true, "device": {...}}.
 
@@ -60,6 +60,11 @@ N_SAMPLES = 1024     # 8 batches of 128
 EVAL_SAMPLES = 1000  # eval path: 62 batches of 16 and a ragged 8
 EVAL_BATCH = 16      # EvalConfig.batch_size
 SEED = 0
+PROFILE_SESSIONS = 3     # device_ms: profiler sessions per reading
+PROFILE_MARGIN_S = 0.05  # ... host idle at both ends of each (see device_ms)
+# ... whose times may differ by this share of their median (complete
+# sessions of one kernel have spread by a few percent)
+PROFILE_SPREAD = 0.10
 
 
 def fail(msg: str) -> None:
@@ -73,40 +78,49 @@ def card_label() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean milliseconds of fn() on the current stream (CUDA events).  For
-    work of a few microseconds this measures the host's launch rate."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
 def device_ms(fn, reps: int, kernel: str = "") -> float:
-    """Mean milliseconds of device time per call of fn(), from
-    torch.profiler: the kernels whose name contains `kernel`, or every
+    """Milliseconds of device time per call of fn(), from torch.profiler:
+    the kernels whose name contains `kernel` (one launch per call), or every
     kernel and copy that fn() runs.  Host overhead between launches is not
-    counted.  Fails if the profiler records no such device time."""
+    counted.  The median over PROFILE_SESSIONS sessions of `reps` calls.
+
+    A session idles on the host for PROFILE_MARGIN_S before its first call
+    and after its last synchronize: without that margin, a session now and
+    then lost the records of launches near its ends, reading the kernel
+    low, or gained some of the warm-up's; with it, none did.  Fails if a
+    session records no such device time, if the sessions record different
+    numbers of device operations (for a named kernel: other than one per
+    call), or if their times differ by more than PROFILE_SPREAD of the
+    median."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    what = kernel or "fn"
+    times, counts = [], []
+    for _ in range(PROFILE_SESSIONS):
+        for _ in range(2):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages()
-                   if e.device_type.name == "CUDA" and kernel in e.key)
-    if total_us <= 0:
-        fail(f"the profiler recorded no device time for {kernel or 'fn'}")
-    return total_us / reps / 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_MARGIN_S)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_MARGIN_S)
+        events = [e for e in prof.key_averages()
+                  if e.device_type.name == "CUDA" and kernel in e.key]
+        total_us = sum(e.device_time_total for e in events)
+        if total_us <= 0:
+            fail(f"the profiler recorded no device time for {what}")
+        times.append(total_us / reps / 1e3)
+        counts.append(sum(e.count for e in events))
+    if len(set(counts)) != 1 or (kernel and counts[0] != reps):
+        fail(f"the profiler recorded {counts} device operations of {what} in "
+             f"{PROFILE_SESSIONS} sessions of {reps} calls each")
+    median = float(np.median(times))
+    if max(times) - min(times) > PROFILE_SPREAD * median:
+        fail(f"device times of {what} differ by more than {PROFILE_SPREAD:.0%} "
+             f"over {PROFILE_SESSIONS} sessions: {times}")
+    return median
 
 
 def bound_ms(n_bytes: float, flops: float, flops_per_s: float):
@@ -180,10 +194,11 @@ def read_counts(path: str, expected: dict) -> dict:
 
 
 def check_warp_kernel(card: str):
-    """The warp kernel against its plain version in four forms; returns the
+    """The warp kernel against its plain version in nine forms; returns the
     main-path form's record (error and times)."""
     from medseg_tpu_torch.core.config import AugmentConfig, IMAGENET_MEAN, IMAGENET_STD
-    from medseg_tpu_torch.ops.augment import _combined_matrices, sample_augment_params
+    from medseg_tpu_torch.ops.augment import (_combined_matrices, envelope_edge_matrices,
+                                              sample_augment_params)
     from medseg_tpu_torch.ops.kernels.warp_kernel import warp_affine_kernel
     from medseg_tpu_torch.ops.warp_fast import warp_affine_fast
 
@@ -222,6 +237,21 @@ def check_warp_kernel(card: str):
                   "one bf16 ulp at the output's largest magnitude (|x| < 4)"))
     cases.append(("bilinear C=3 f32 planar", imgs8, mats8, dict(planar=True),
                   1e-3, "same float32 operation order, no FMA: expect 0"))
+    edge = envelope_edge_matrices(SIZE, SIZE, dev)
+    imgs_e = imgs8[:edge.shape[0]].contiguous()
+    p_e = dict(alpha=p8.alpha[:edge.shape[0]], beta=p8.beta[:edge.shape[0]])
+    cases.append(("envelope edge (+-15 deg, scale 0.9/1.1, 5% shift, flip) "
+                  "bilinear epilogue bf16", imgs_e, edge,
+                  dict(main_kw, **p_e), 0.0, "bit for bit"))
+    cases.append(("envelope edge nearest epilogue bf16 planar", imgs_e, edge,
+                  dict(main_kw, nearest=True, planar=True, **p_e), 0.0,
+                  "bit for bit"))
+    clip = torch.tensor([[[1.0, 0.0, 0.0], [0.9, 1.0, -20.0]],
+                         [[0.8, 0.3, 5.0], [-0.2, 2.5, -40.0]]], device=dev)
+    cases.append(("line shifts clipped at MAX_SHIFT, rows beyond the staging, "
+                  "f32", imgs8[:2].contiguous(), clip, {}, 0.0,
+                  "bit for bit: rows past the staged 96 are computed from the "
+                  "image by the same code"))
     errs = {}
     for name, x, m, kw, tol, why in cases:
         got = warp_affine_kernel(x, m, **kw)
@@ -306,8 +336,9 @@ def check_photometric_kernel(card: str):
 def check_stem_kernel(card: str):
     """The stem kernel against its plain version (a float32 conv, bias,
     ReLU and pool): float32 at B=4, 64px; a constant-1 input at B=2, 32px,
-    which exposes any border mismatch; and bf16 at the stem path's B=128,
-    256px on the warp kernel's planar output.  Returns the stem path's
+    which exposes any border mismatch; bf16 (the tensor-core form) on
+    ragged tiles with an odd batch, on a constant-1 input, and at the stem
+    path's B=128, 256px on the warp kernel's planar output.  Returns the stem path's
     record (the bf16 case), with the cuDNN composite (conv2d + bias + relu + max_pool2d in
     bf16) as its library time."""
     import torch.nn.functional as F
@@ -339,6 +370,16 @@ def check_stem_kernel(card: str):
               *weights(torch.float32), 1e-4, 0, "float32 summation order"),
              ("constant-1 f32 B=2 32px (borders)", torch.ones(2, 96, 32, device=dev),
               *weights(torch.float32), 1e-4, 0, "float32 summation order"),
+             ("ragged bf16 B=3 36x68 (H/4, W/4 not multiples of 8; "
+              "element-wise staging)",
+              torch.randn(3, 3 * 36, 68, generator=gen, device=dev).to(torch.bfloat16),
+              *weights(torch.bfloat16), 1e-5, 1, "one bf16 ulp + 1e-5"),
+             ("ragged bf16 B=3 44x72 (16-byte staging)",
+              torch.randn(3, 3 * 44, 72, generator=gen, device=dev).to(torch.bfloat16),
+              *weights(torch.bfloat16), 1e-5, 1, "one bf16 ulp + 1e-5"),
+             ("constant-1 bf16 B=1 40x48 (borders)",
+              torch.ones(1, 3 * 40, 48, device=dev, dtype=torch.bfloat16),
+              *weights(torch.bfloat16), 1e-5, 1, "one bf16 ulp + 1e-5"),
              (path_case, planes, w16, b16, 1e-5, 1,
               "one bf16 ulp of the element's magnitude, as the float32 sums "
               "may round to neighbouring bf16 values, plus 1e-5 where they "
@@ -365,7 +406,7 @@ def check_stem_kernel(card: str):
         return F.max_pool2d(y, 3, 2, padding=1)
 
     ms = device_ms(lambda: stem_conv_pool(planes, w16, b16), 20,
-                   "stem_conv_pool_kernel<")
+                   "stem_conv_pool_bf16_kernel")
     plain_ms = device_ms(lambda: stem_conv_pool_reference(planes, w16, b16), 5)
     library_ms = device_ms(library, 20)
     b_ms, b_by = stem_bound_ms(BATCH, SIZE, SIZE, 2)
@@ -582,12 +623,20 @@ def run_stem_path(card: str):
               f"bf16 rounds at other places through 20 layers)")
         if not err <= tol:
             fail(f"stem path disagrees with model(x): {err} > {tol}")
-        stem_ms = cuda_ms(lambda: apply_with_stem_kernel(model, planes, planar=True),
-                          reps=10)
-        fwd_ms = cuda_ms(lambda: model(x), reps=10)
-    print(f"[{card}] stem path, ResNet18 bf16 B={BATCH} at {SIZE}px: "
-          f"apply_with_stem_kernel {stem_ms:.4f} ms/batch, model(x) "
-          f"{fwd_ms:.4f} ms/batch (CUDA events, forward only)")
+        # device time of every kernel each forward runs, in turns
+        stem_fwd = lambda: apply_with_stem_kernel(model, planes, planar=True)
+        fwd = lambda: model(x)
+        turns = [("stem", stem_fwd), ("model", fwd), ("model", fwd),
+                 ("stem", stem_fwd)]
+        times = {"stem": [], "model": []}
+        for name, fn in turns:
+            times[name].append(device_ms(fn, 10))
+    stem_ms, fwd_ms = (float(np.mean(times[k])) for k in ("stem", "model"))
+    print(f"[{card}] stem path, ResNet18 bf16 B={BATCH} at {SIZE}px, device "
+          f"time of all kernels per forward, in turns (stem, model, model, "
+          f"stem): apply_with_stem_kernel {times['stem'][0]:.4f} / "
+          f"{times['stem'][1]:.4f} ms, model(x) {times['model'][0]:.4f} / "
+          f"{times['model'][1]:.4f} ms; means {stem_ms:.4f} vs {fwd_ms:.4f} ms")
     return launches
 
 

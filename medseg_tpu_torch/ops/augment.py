@@ -88,6 +88,22 @@ def _combined_matrices(params: AugmentParams, h: int, w: int) -> torch.Tensor:
     return I.compose_affine(ssr, flip)
 
 
+def envelope_edge_matrices(h: int, w: int, device=None) -> torch.Tensor:
+    """Four dst->src matrices at the edge of the default envelope: the
+    largest rotation (+-15 deg) and shift (5%) both ways, scale 0.9 and 1.1
+    (twice the scale limit), with and without the flip.  The warp kernel is
+    held to its plain version on these."""
+    cfg = AugmentConfig()
+    sign = torch.tensor([1.0, -1.0, -1.0, 1.0], device=device)
+    params = AugmentParams(
+        angle_deg=torch.tensor([1.0, -1.0, 1.0, -1.0], device=device) * cfg.rotate_limit_deg,
+        scale=torch.tensor([0.9, 1.1, 1.1, 0.9], device=device),
+        dx=sign * cfg.shift_limit, dy=-sign * cfg.shift_limit,
+        flip=torch.tensor([False, True, False, True], device=device),
+        alpha=torch.ones(4, device=device), beta=torch.zeros(4, device=device))
+    return _combined_matrices(params, h, w)
+
+
 def _on_card(images: torch.Tensor) -> bool:
     """Whether augment_batch and preprocess_eval_batch take the kernel
     branch (the device split above); a test may force the branch onto CPU

@@ -3,13 +3,17 @@
 
 Replaces medseg_tpu/ops/pallas/stem_kernel.py:191 `stem_conv_pool_pallas`
 (body `_stem_kernel`), with `fold_bn` from the same file.  The CUDA source
-is medseg_tpu_torch/csrc/stem_conv_pool.cu: one CTA per (image, 8x8 tile of
-pooled outputs, 32 channels), the conv summed in float32 from a patch and
-weights staged in shared memory.  The work bounds it (39.5 GFLOP at B=128,
-256x256: 40 us on the bf16 tensor cores); this first version runs float32
-SIMT, whose floor is 0.59 ms.  Its plain PyTorch version is
-`stem_conv_pool_reference` below, a float32 convolution; the two differ only
-in the order of the float32 sum.
+is medseg_tpu_torch/csrc/stem_conv_pool.cu.  In bfloat16 (the stem path)
+the conv is an implicit GEMM on the tensor cores (mma.sync m16n8k16, float32
+accumulators): persistent CTAs walk 8x8 tiles of pooled outputs with all 64
+channels, gather A fragments straight from a bf16 input patch in shared
+memory (loaded by cp.async a tile ahead), hold the folded weights' B
+fragments in registers, and pool from a bf16 conv tile.  The work bounds it
+(39.5 GFLOP at B=128, 256x256: 40 us on the bf16 tensor cores); shared-memory
+traffic of the A gathers limits this design.  float32 keeps a SIMT kernel
+(TF32 tensor cores would miss its 1e-4 tolerance).  Its plain PyTorch
+version is `stem_conv_pool_reference` below, a float32 convolution; the two
+differ only in the order of the float32 sum.
 
 Unlike the TPU kernel, the batch need not be even (that was a Mosaic
 constraint).  H and W must be multiples of 4.  For a CPU tensor the wrapper

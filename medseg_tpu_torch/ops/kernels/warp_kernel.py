@@ -3,12 +3,15 @@ the optional fused photometric epilogue, on Hopper.
 
 Replaces medseg_tpu/ops/pallas/warp_kernel.py:208 `warp_affine_pallas` (body
 `_warp_kernel`), the one TPU kernel on the aug+infer path.  The CUDA source
-is medseg_tpu_torch/csrc/warp_affine.cu: a direct gather, one thread per
-output pixel and all C channels, 16 uint8 taps per channel.  It is bound by
-memory (each input byte read once, each output written once: 75.5 MB at
-B=128, 256x256x3 with bf16 out, about 23 us at 3.35 TB/s).  Its plain
-PyTorch version is ops/warp_fast.warp_affine_fast, with which it agrees bit
-for bit in float32.
+is medseg_tpu_torch/csrc/warp_affine.cu: a CTA owns a 64x64 output tile,
+stages the window of source rows the tile reads in shared memory, computes
+each pass-A value once per (row, column, channel) into shared memory, then
+runs pass B and the epilogue into an output tile that it copies out with
+16-byte stores.  Its bound is memory (each input byte read once, each output
+written once: 75.5 MB at B=128, 256x256x3 with bf16 out, about 23 us at
+3.35 TB/s); the latency of its phases, which run one after another, limits
+this design.  Its plain PyTorch version is ops/warp_fast.warp_affine_fast,
+with which it agrees bit for bit in float32, for any matrix.
 
 For a CPU tensor the wrapper runs the plain version.  For a CUDA tensor it
 launches the kernel or raises; it never falls back.  `planar=True` returns

@@ -6,6 +6,7 @@ tiling, borders and layouts here; only the chip run shows that nvcc builds
 it and that it is right and fast on the card."""
 
 import functools
+import math
 import re
 import shutil
 import subprocess
@@ -15,17 +16,19 @@ import pytest
 import torch
 
 from medseg_tpu_torch.core.config import AugmentConfig, IMAGENET_MEAN, IMAGENET_STD
-from medseg_tpu_torch.ops.augment import _combined_matrices, sample_augment_params
+from medseg_tpu_torch.ops.augment import (_combined_matrices, envelope_edge_matrices,
+                                          sample_augment_params)
 from medseg_tpu_torch.ops.kernels import build
 from medseg_tpu_torch.ops.kernels import photometric as P
 from medseg_tpu_torch.ops.kernels import stem_kernel as S
 from medseg_tpu_torch.ops.kernels import warp_kernel as W
-from medseg_tpu_torch.ops.warp_fast import warp_affine_fast
+from medseg_tpu_torch.ops.warp_fast import MAX_SHIFT, PAD, warp_affine_fast, warp_scalars
 
 torch.set_num_threads(1)
 
 HEADER = Path(__file__).resolve().parent / "cuda_emulation.h"
 LAUNCH = re.compile(r"(\w+(?:<[^;(]*?>)?)<<<(.*?)>>>\((.*?)\);", re.S)
+DYNAMIC_SHARED = re.compile(r"extern __shared__ (?:__align__\(\d+\) )?([\w ]+?) (\w+)\[\];")
 
 
 @pytest.fixture(scope="module")
@@ -42,6 +45,8 @@ def emulated(tmp_path_factory):
         text = LAUNCH.sub(lambda m: f"EmuLaunch({m.group(2)})"
                                     f"([&] {{ {m.group(1)}({m.group(3)}); }});", text)
         text = re.sub(r"#include <cuda_(bf16|runtime)\.h>", "", text)
+        text = DYNAMIC_SHARED.sub(r"\1* \2 = reinterpret_cast<\1*>(emu_dynamic_smem);",
+                                  text)
         cpp = out / (source + ".cpp")
         cpp.write_text(f'#include "{HEADER}"\n{text}')
         lib = out / f"lib{Path(source).stem}.so"
@@ -96,6 +101,91 @@ def test_warp_source_without_epilogue(emulated, monkeypatch, channels, nearest):
                        warp_affine_fast(images, mats, nearest=nearest))
 
 
+def _epilogue_kw(b, out_dtype, planar=False, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return dict(out_dtype=out_dtype, planar=planar,
+                alpha=0.9 + 0.2 * torch.rand(b, generator=gen),
+                beta=0.2 * torch.rand(b, generator=gen) - 0.1,
+                mean=tuple(m * 255.0 for m in IMAGENET_MEAN),
+                std=tuple(s * 255.0 for s in IMAGENET_STD))
+
+
+def _images(b, h, w, c=3, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(0, 256, (b, h, w, c), generator=gen, dtype=torch.uint8)
+
+
+@pytest.mark.parametrize("planar", [False, True])
+@pytest.mark.parametrize("size", [(40, 72), (40, 80), (33, 37)],
+                         ids=["byte-rows", "16-byte-rows", "odd-pitch"])
+def test_warp_source_on_ragged_tiles(emulated, monkeypatch, size, planar):
+    """Several 64x64 tiles, the last row and column of tiles cut short:
+    source rows staged byte by byte (40x72x3), in 16-byte loads (40x80x3),
+    and an odd width whose output pitch rules out 16-byte stores."""
+    run = _run(W, emulated, monkeypatch)
+    h, w = size
+    images = _images(3, h, w)
+    p = sample_augment_params(torch.Generator().manual_seed(3), 3,
+                              AugmentConfig(affine_p=1.0, hflip_p=0.5))
+    mats = _combined_matrices(p, h, w)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        kw = _epilogue_kw(3, out_dtype, planar)
+        assert torch.equal(run(images, mats, nearest=False, **kw),
+                           warp_affine_fast(images, mats, **kw))
+
+
+@pytest.mark.parametrize("size", [(72, 136), (64, 176)],
+                         ids=["byte-rows", "16-byte-rows"])
+@pytest.mark.parametrize("nearest", [False, True])
+def test_warp_source_at_the_envelope_edge(emulated, monkeypatch, nearest, size):
+    """Source rows wider than the staged window (384 bytes), so each tile
+    stages the columns it reads, folded at the image's edges."""
+    run = _run(W, emulated, monkeypatch)
+    h, w = size
+    images = _images(4, h, w, seed=4)
+    mats = envelope_edge_matrices(h, w)
+    kw = _epilogue_kw(4, torch.bfloat16, seed=4)
+    assert torch.equal(run(images, mats, nearest, **kw),
+                       warp_affine_fast(images, mats, nearest=nearest, **kw))
+
+
+def _rows_pass_b_reads(matrices, h, w, tile_w=64, tile_h=64):
+    """The most padded rows that pass B reads for one output tile, by the
+    plain version's formulas (float64: a premise, not a bit-exact check)."""
+    worst = 0
+    for aa, cc, bb, m11, m12p, m10 in warp_scalars(matrices).double().tolist():
+        mid_col = (w + 2 * PAD - 1) / 2.0
+        kb = lambda x: math.floor(min(max(m10 * (x + PAD - mid_col) / m11,
+                                          1.0 - MAX_SHIFT), MAX_SHIFT - 1.0))
+        for x0 in range(0, w, tile_w):
+            ks = (kb(x0), kb(min(x0 + tile_w, w) - 1))
+            for y0 in range(0, h, tile_h):
+                y1 = min(y0 + tile_h, h) - 1
+                src = [m11 * (y0 + PAD + min(ks)) + m12p + m10 * mid_col,
+                       m11 * (y1 + PAD + max(ks) + 1) + m12p + m10 * mid_col]
+                lo = max(math.floor(min(src)), 0)
+                hi = min(math.floor(max(src)) + 1, h + 2 * PAD - 1)
+                worst = max(worst, hi - lo + 1)
+    return worst
+
+
+def test_warp_source_when_line_shifts_clip(emulated, monkeypatch):
+    """Matrices far outside the augmentation envelope: a strong shear whose
+    per-column shifts clip at MAX_SHIFT, and a 2.5x vertical minification.
+    A tile then reads more padded rows than the kernel stages (96), and the
+    rest are computed straight from the image."""
+    run = _run(W, emulated, monkeypatch)
+    h, w = 64, 136
+    mats = torch.tensor([[[1.0, 0.0, 0.0], [0.9, 1.0, -20.0]],
+                         [[0.8, 0.3, 5.0], [-0.2, 2.5, -40.0]]])
+    assert _rows_pass_b_reads(mats, h, w) > 96
+    images = _images(2, h, w, seed=5)
+    for nearest in (False, True):
+        kw = _epilogue_kw(2, torch.float32, seed=5)
+        assert torch.equal(run(images, mats, nearest, **kw),
+                           warp_affine_fast(images, mats, nearest=nearest, **kw))
+
+
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_photometric_source_equals_plain_version(emulated, monkeypatch, out_dtype):
     """Flips, alpha and beta per sample, an odd width: bit for bit."""
@@ -110,12 +200,14 @@ def test_photometric_source_equals_plain_version(emulated, monkeypatch, out_dtyp
         P.fused_photometric_reference(images, alpha, beta, flip, out_dtype))
 
 
-@pytest.mark.parametrize("shape", [(2, 32, 32), (1, 64, 40), (3, 36, 68)],
-                         ids=["one-tile", "2x2-tiles", "ragged-tiles"])
+@pytest.mark.parametrize("shape", [(2, 32, 32), (1, 64, 40), (3, 36, 68), (3, 44, 72)],
+                         ids=["one-tile", "2x2-tiles", "ragged-tiles",
+                              "ragged-tiles-16-byte-rows"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_stem_source_equals_plain_version(emulated, monkeypatch, shape, dtype):
     """Whole, several and ragged 8x8 pooled tiles (H/4 or W/4 not a multiple
-    of 8) and an odd batch.  float32: within 1e-4 (summation order).
+    of 8) and an odd batch, with the bf16 patch staged element by element
+    (W not a multiple of 8) and in 16-byte loads.  float32: within 1e-4 (summation order).
     bf16: one bf16 ulp of the larger magnitude, plus 1e-5 where the float32
     sums straddle ReLU's zero."""
     run = _run(S, emulated, monkeypatch)
@@ -143,3 +235,17 @@ def test_stem_source_borders_on_a_constant_image(emulated, monkeypatch):
     torch.testing.assert_close(run(planes, weight, bias),
                                S.stem_conv_pool_reference(planes, weight, bias),
                                atol=1e-4, rtol=0)
+
+
+def test_stem_source_borders_on_a_constant_bf16_image(emulated, monkeypatch):
+    """The tensor-core form at every border: a constant-1 image, ragged."""
+    run = _run(S, emulated, monkeypatch)
+    gen = torch.Generator().manual_seed(3)
+    weight = (torch.randn(64, 3, 7, 7, generator=gen) * 0.1).to(torch.bfloat16)
+    bias = (torch.randn(64, generator=gen) * 0.1).to(torch.bfloat16)
+    planes = torch.ones(1, 3 * 40, 48, dtype=torch.bfloat16)
+    got = run(planes, weight, bias).float()
+    want = S.stem_conv_pool_reference(planes, weight, bias).float()
+    mag = torch.maximum(got.abs(), want.abs()).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    assert ((got - want).abs() <= ulp + 1e-5).all()
