@@ -21,7 +21,9 @@ Run from the root of a checkout.  It
    - eval: a random ResNet18 written as the reference's .pt, then
      test_all_models over a 1000-image synthetic test split (batches of 16,
      one photometric-kernel launch each) -> print_summary ->
-     save_results_to_csv, read back with csv;
+     save_results_to_csv, read back with csv; then, on one batch,
+     preprocess_eval_batch must run exactly one device operation, and its
+     device time and the forward's are printed;
    - fused stem: the warp kernel's planar bf16 output -> apply_with_stem_
      kernel (one stem-kernel launch) on ResNet18 bf16, against model(x) on
      the same batch in NHWC, both timed by device time in turns;
@@ -61,10 +63,13 @@ EVAL_SAMPLES = 1000  # eval path: 62 batches of 16 and a ragged 8
 EVAL_BATCH = 16      # EvalConfig.batch_size
 SEED = 0
 PROFILE_SESSIONS = 3     # device_ms: profiler sessions per reading
-PROFILE_MARGIN_S = 0.05  # ... host idle at both ends of each (see device_ms)
+PROFILE_MARGIN_S = 0.05  # ... host idle at both ends of each (see _sessions)
 # ... whose times may differ by this share of their median (complete
 # sessions of one kernel have spread by a few percent)
 PROFILE_SPREAD = 0.10
+# ... and brackets its calls with two launches of torch.cuda._sleep's kernel
+MARKER = "spin_kernel"
+MARKER_CYCLES = 1000
 
 
 def fail(msg: str) -> None:
@@ -78,44 +83,60 @@ def card_label() -> str:
     return out.strip().splitlines()[0]
 
 
-def device_ms(fn, reps: int, kernel: str = "") -> float:
-    """Milliseconds of device time per call of fn(), from torch.profiler:
-    the kernels whose name contains `kernel` (one launch per call), or every
-    kernel and copy that fn() runs.  Host overhead between launches is not
-    counted.  The median over PROFILE_SESSIONS sessions of `reps` calls.
-
-    A session idles on the host for PROFILE_MARGIN_S before its first call
-    and after its last synchronize: without that margin, a session now and
-    then lost the records of launches near its ends, reading the kernel
-    low, or gained some of the warm-up's; with it, none did.  Fails if a
-    session records no such device time, if the sessions record different
-    numbers of device operations (for a named kernel: other than one per
-    call), or if their times differ by more than PROFILE_SPREAD of the
-    median."""
+def _sessions(fn, reps: int):
+    """PROFILE_SESSIONS profiler sessions of `reps` calls of fn(), each after
+    two warm-up calls and with PROFILE_MARGIN_S of host idle at both ends:
+    without that margin, a session now and then lost the records of
+    launches near its ends, reading a kernel low, or gained some of the
+    warm-up's; with it, none did.  From the aug+infer path on, every
+    session still lost one record (49 of 50 calls, 0 of 1), so the calls
+    sit between two marker kernels (MARKER): the record lost is a marker's,
+    and no reading counts markers.  Yields each session's device events
+    other than the markers, and says so when a session loses a marker."""
     from torch.profiler import ProfilerActivity, profile
 
-    what = kernel or "fn"
-    times, counts = [], []
     for _ in range(PROFILE_SESSIONS):
         for _ in range(2):
             fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             time.sleep(PROFILE_MARGIN_S)
+            torch.cuda._sleep(MARKER_CYCLES)
             for _ in range(reps):
                 fn()
+            torch.cuda._sleep(MARKER_CYCLES)
             torch.cuda.synchronize()
             time.sleep(PROFILE_MARGIN_S)
-        events = [e for e in prof.key_averages()
-                  if e.device_type.name == "CUDA" and kernel in e.key]
+        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        markers = sum(e.count for e in events if MARKER in e.key)
+        if markers != 2:
+            print(f"chip_smoke: a profiler session recorded {markers} of its 2 "
+                  f"marker kernels")
+        yield [e for e in events if MARKER not in e.key]
+
+
+def device_ms(fn, reps: int, kernel: str = "") -> float:
+    """Milliseconds of device time per call of fn(), from torch.profiler:
+    the kernels whose name contains `kernel` (one launch per call), or every
+    kernel and copy that fn() runs.  Host overhead between launches is not
+    counted.  The median over PROFILE_SESSIONS sessions of `reps` calls
+    (see _sessions).  Fails if a session records no such device time, if
+    the sessions record different numbers of device operations (for a
+    named kernel: other than one per call), or if their times differ by
+    more than PROFILE_SPREAD of the median."""
+    what = kernel or "fn"
+    times, counts, names = [], [], []
+    for events in _sessions(fn, reps):
+        events = [e for e in events if kernel in e.key]
         total_us = sum(e.device_time_total for e in events)
         if total_us <= 0:
             fail(f"the profiler recorded no device time for {what}")
         times.append(total_us / reps / 1e3)
         counts.append(sum(e.count for e in events))
+        names.append({e.key[:80]: e.count for e in events})
     if len(set(counts)) != 1 or (kernel and counts[0] != reps):
         fail(f"the profiler recorded {counts} device operations of {what} in "
-             f"{PROFILE_SESSIONS} sessions of {reps} calls each")
+             f"{PROFILE_SESSIONS} sessions of {reps} calls each: {names}")
     median = float(np.median(times))
     if max(times) - min(times) > PROFILE_SPREAD * median:
         fail(f"device times of {what} differ by more than {PROFILE_SPREAD:.0%} "
@@ -142,13 +163,16 @@ def warp_bound_ms(b: int, h: int, w: int, c: int, out_bytes: int):
                     F32_FLOPS_PER_S)
 
 
-def photometric_bound_ms(b: int, h: int, w: int, c: int, out_bytes: int):
+def photometric_bound_ms(b: int, h: int, w: int, c: int, out_bytes: int,
+                         per_sample: bool = True):
     """The photometric pass: each uint8 input byte read and each output
-    written once (+ the [B,3] float32 scalars), against 7 float32 flops per
-    value (multiply, multiply-add, clip, subtract, divide)."""
+    written once (+ the per-sample alpha, beta and flip, 9 bytes a sample),
+    against 7 float32 flops per value (multiply, multiply-add, clip,
+    subtract, divide); the eval form (per_sample False) reads no scalars
+    and does 2 (subtract, divide)."""
     values = b * h * w * c
-    return bound_ms(values * (1 + out_bytes) + b * 3 * 4, values * 7,
-                    F32_FLOPS_PER_S)
+    return bound_ms(values * (1 + out_bytes) + (b * 9 if per_sample else 0),
+                    values * (7 if per_sample else 2), F32_FLOPS_PER_S)
 
 
 def stem_bound_ms(b: int, h: int, w: int, elem_bytes: int):
@@ -280,12 +304,17 @@ def check_warp_kernel(card: str):
 
 
 def check_photometric_kernel(card: str):
-    """The photometric kernel against its plain version: the eval form
-    (alpha=1, beta=0, no flip, float32 out) at the eval path's B=16 and at
-    B=128, and bf16 out with sampled alpha, beta and flips at B=128.  Same
-    float32 operation order, no FMA: tolerance 0.  Returns the eval path's
-    form's record."""
-    from medseg_tpu_torch.core.config import AugmentConfig
+    """The photometric kernel against its plain version in nine forms, all
+    at tolerance 0 (same float32 operation order, no FMA): the eval form
+    (alpha, beta and flip None, float32 out) and the explicit alpha=1,
+    beta=0, no-flip form, each at the eval path's B=16 and at B=128;
+    sampled alpha, beta and flips with bf16 out at B=128; C=1 and C=4 on the
+    vector path; and the scalar path (W=250, and an input one byte past
+    16-byte alignment).  Times the B=128 forms and the B=16 forms warm, the
+    eval path's form also with a cold L2, beside a same-traffic conversion
+    (`images.to(dtype)`) timed the same way.  Returns the eval path's
+    form's record, its time the cold reading."""
+    from medseg_tpu_torch.core.config import AugmentConfig, IMAGENET_MEAN, IMAGENET_STD
     from medseg_tpu_torch.ops.augment import sample_augment_params
     from medseg_tpu_torch.ops.kernels.photometric import (
         fused_photometric, fused_photometric_reference)
@@ -293,42 +322,83 @@ def check_photometric_kernel(card: str):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
 
-    def eval_form(b):
-        imgs = torch.randint(0, 256, (b, SIZE, SIZE, 3), generator=gen,
-                             device=dev, dtype=torch.uint8)
-        ones = torch.ones(b, device=dev)
-        return (imgs, ones, torch.zeros_like(ones),
-                torch.zeros(b, dtype=torch.bool, device=dev))
+    def images(b, w=SIZE, c=3):
+        return torch.randint(0, 256, (b, SIZE, w, c), generator=gen, device=dev,
+                             dtype=torch.uint8)
 
-    p = sample_augment_params(gen, BATCH, AugmentConfig())
-    flip = p.flip.clone()
-    flip[:2] = torch.tensor([True, False])  # both kinds, whatever the draw
-    sampled = (eval_form(BATCH)[0], p.alpha, p.beta, flip)
-    path_case = "eval form f32 B=16 (eval path)"
-    cases = [(path_case, eval_form(EVAL_BATCH), torch.float32),
-             ("eval form f32 B=128", eval_form(BATCH), torch.float32),
-             ("sampled alpha/beta/flip bf16 B=128", sampled, torch.bfloat16)]
-    records = {}
-    for name, args, dtype in cases:
-        got = fused_photometric(*args, out_dtype=dtype)
+    def sampled(b):
+        p = sample_augment_params(gen, b, AugmentConfig())
+        flip = p.flip.clone()
+        flip[:2] = torch.tensor([True, False])  # both kinds, whatever the draw
+        return p.alpha, p.beta, flip
+
+    def explicit(b):
+        ones = torch.ones(b, device=dev)
+        return ones, torch.zeros_like(ones), torch.zeros(b, dtype=torch.bool, device=dev)
+
+    none = (None, None, None)
+    img16, img128 = images(EVAL_BATCH), images(BATCH)
+    misaligned = torch.empty(8 * SIZE * SIZE * 3 + 1, dtype=torch.uint8,
+                             device=dev)[1:].view(8, SIZE, SIZE, 3)
+    misaligned.copy_(images(8))
+    norm3 = dict(mean=IMAGENET_MEAN, std=IMAGENET_STD)
+    path_case = "eval form (alpha, beta, flip None) f32 B=16 (eval path)"
+    # (name, images, (alpha, beta, flip), out dtype, mean/std)
+    cases = [(path_case, img16, none, torch.float32, norm3),
+             ("eval form f32 B=128", img128, none, torch.float32, norm3),
+             ("alpha=1, beta=0, no flip f32 B=16", img16, explicit(EVAL_BATCH),
+              torch.float32, norm3),
+             ("alpha=1, beta=0, no flip f32 B=128", img128, explicit(BATCH),
+              torch.float32, norm3),
+             ("sampled alpha/beta/flip bf16 B=128", img128, sampled(BATCH),
+              torch.bfloat16, norm3),
+             ("C=1 vector path, sampled, f32 B=8", images(8, c=1), sampled(8),
+              torch.float32, dict(mean=(0.5,), std=(0.25,))),
+             ("C=4 vector path (mask plane mean 0 std 1/255), sampled, bf16 B=8",
+              images(8, c=4), sampled(8), torch.bfloat16,
+              dict(mean=IMAGENET_MEAN + (0.0,), std=IMAGENET_STD + (1 / 255,))),
+             ("scalar path: W=250, sampled, f32 B=8", images(8, w=250), sampled(8),
+              torch.float32, norm3),
+             ("scalar path: input 1 byte past 16-byte alignment, sampled, bf16 B=8",
+              misaligned, sampled(8), torch.bfloat16, norm3)]
+    errs = {}
+    for name, x, scalars, dtype, norm in cases:
+        got = fused_photometric(x, *scalars, out_dtype=dtype, **norm)
         torch.cuda.synchronize()
-        want = fused_photometric_reference(*args, out_dtype=dtype)
-        err = (got.float() - want.float()).abs().max().item()
+        want = fused_photometric_reference(x, *scalars, out_dtype=dtype, **norm)
+        err = errs[name] = (got.float() - want.float()).abs().max().item()
         print(f"[{card}] photometric kernel vs plain, {name}: max_abs_err={err} "
               f"tol=0 (same float32 operation order, no FMA)")
-        if err != 0.0:
+        if err != 0.0 or got.shape != x.shape or got.dtype != dtype:
             fail(f"photometric kernel disagrees with its plain version ({name}): {err}")
-        b = args[0].shape[0]
-        ms = device_ms(lambda: fused_photometric(*args, out_dtype=dtype), 100,
-                       "photometric_kernel<")
-        plain_ms = device_ms(lambda: fused_photometric_reference(*args, out_dtype=dtype),
-                             10)
-        b_ms, b_by = photometric_bound_ms(b, SIZE, SIZE, 3, dtype.itemsize)
-        print(f"[{card}] photometric kernel {name}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); no single "
-              f"PyTorch call computes flip + brightness/contrast + "
-              f"normalize, so library_ms is null")
-        records[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+
+    # A cold L2: 64 MB written before each call evicts the 15.7 MB that
+    # B=16 moves; the kernel-name filters leave that write out.
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    clear = scratch.zero_
+    kernel_name, copy_name = "photometric_kernel<", "direct_copy_kernel"
+    records = {}
+    for name, x, scalars, dtype, norm in cases[:5]:
+        run = lambda: fused_photometric(x, *scalars, out_dtype=dtype, **norm)
+        convert = lambda: x.to(dtype)
+        ms = device_ms(run, 100, kernel_name)
+        conv_ms = device_ms(convert, 100, copy_name)
+        plain_ms = device_ms(lambda: fused_photometric_reference(
+            x, *scalars, out_dtype=dtype, **norm), 10)
+        b_ms, b_by = photometric_bound_ms(x.shape[0], SIZE, SIZE, 3, dtype.itemsize,
+                                          per_sample=scalars[0] is not None)
+        timing = (f"kernel {ms:.4f} ms ({b_ms / ms:.0%} of the bound), same-traffic "
+                  f"x.to({dtype}) {conv_ms:.4f} ms")
+        if name == path_case:
+            ms = device_ms(lambda: (clear(), run()), 100, kernel_name)
+            cold_conv_ms = device_ms(lambda: (clear(), convert()), 100, copy_name)
+            timing = (f"cold L2: kernel {ms:.4f} ms ({b_ms / ms:.0%} of the bound), "
+                      f"same-traffic x.to({dtype}) {cold_conv_ms:.4f} ms; warm: "
+                      + timing)
+        print(f"[{card}] photometric kernel {name}: {timing}, plain {plain_ms:.4f} "
+              f"ms, bound {b_ms:.4f} ms ({b_by}); no single PyTorch call computes "
+              f"flip + brightness/contrast + normalize, so library_ms is null")
+        records[name] = {"max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
     return records[path_case]
 
@@ -530,7 +600,6 @@ def run_eval_path(card: str):
         (root / "weights" / "classification_models").mkdir(parents=True)
         torch.save({k: v.cpu() for k, v in model.state_dict().items()},
                    root / "weights" / "classification_models" / "ResNet18_best_acc.pt")
-        del model
         loader = BatchLoader(synthetic_cls(n=EVAL_SAMPLES, img_size=SIZE, seed=SEED),
                              EVAL_BATCH, shuffle=False)
         cfg = EvalConfig(batch_size=EVAL_BATCH, weights_root=str(root / "weights"),
@@ -564,12 +633,21 @@ def run_eval_path(card: str):
             fail(f"eval path: the CSV reads back as {rows}, not {want}")
 
         # one batch: the kernel's eval form is the plain normalization, bit
-        # for bit
+        # for bit, in one device operation; and a batch's device time split
+        # between the preprocessing and the forward
         images, _ = next(iter(loader))
         x, _ = preprocess_eval_batch(images)
         if not torch.equal(x, normalize_imagenet(images, IMAGENET_MEAN, IMAGENET_STD)):
             fail("eval path: the photometric kernel's eval form differs from "
                  "normalize_imagenet")
+        preprocess = lambda: preprocess_eval_batch(images)
+        ops = [sum(e.count for e in events) for events in _sessions(preprocess, 1)]
+        if ops != [1] * PROFILE_SESSIONS:
+            fail(f"eval path: one preprocess_eval_batch call ran {ops} device "
+                 f"operations in {PROFILE_SESSIONS} profiler sessions, not 1")
+        pre_ms = device_ms(preprocess, 50, "photometric_kernel<")
+        with torch.inference_mode():
+            fwd_ms = device_ms(lambda: model.eval()(x), 10)
     print(f"[{card}] eval path, ResNet18 float32 (random weights, seed {SEED}), "
           f"{EVAL_SAMPLES} images at {SIZE}px in {len(loader)} batches of "
           f"{EVAL_BATCH}: {wall:.3f} s, {EVAL_SAMPLES / wall:.1f} img/s (host "
@@ -578,6 +656,9 @@ def run_eval_path(card: str):
           f"confusion matrix sums to {res['confusion_matrix'].sum()}; the CSV "
           f"reads back to the metrics; photometric kernel == normalize_imagenet "
           f"on one batch")
+    print(f"[{card}] eval path, one batch of {EVAL_BATCH} by device time: "
+          f"preprocess_eval_batch {pre_ms:.4f} ms (one device operation), "
+          f"ResNet18 float32 forward {fwd_ms:.4f} ms")
     return launches
 
 

@@ -15,8 +15,9 @@ For CPU tensors it warps with the kernel's plain version, applies
 brightness/contrast and normalization as separate steps, and warps masks
 with true nearest sampling, so masks can differ on region edges between
 the two devices.  preprocess_eval_batch makes the same split: on the card
-it is one launch of the photometric kernel with alpha=1, beta=0 and no
-flip, which computes the CPU branch's normalization bit for bit.
+it is one launch of the photometric kernel's eval form (no alpha, beta or
+flip), one device operation, which computes the CPU branch's
+normalization bit for bit.
 """
 
 from __future__ import annotations
@@ -185,11 +186,7 @@ def preprocess_eval_batch(
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Val/test preprocessing: normalize only (reference utils/trainer.py:71-83)."""
     if _on_card(images):
-        b = images.shape[0]
-        ones = torch.ones(b, device=images.device)
-        x = fused_photometric(images, ones, torch.zeros_like(ones),
-                              torch.zeros(b, dtype=torch.bool, device=images.device),
-                              out_dtype, cfg.mean, cfg.std)
+        x = fused_photometric(images, None, None, None, out_dtype, cfg.mean, cfg.std)
     else:
         x = I.normalize_imagenet(images, cfg.mean, cfg.std).to(out_dtype)
     m = None

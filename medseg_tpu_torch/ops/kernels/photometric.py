@@ -2,23 +2,27 @@
 brightness/contrast and normalization in one pass, on Hopper.
 
 Replaces medseg_tpu/ops/pallas/photometric.py:51 `fused_photometric` (body
-`_kernel`).  The CUDA source is medseg_tpu_torch/csrc/photometric.cu: one
-thread per output pixel and all C channels, the flip an index.  It is bound
-by memory (125.8 MB at B=128, 256x256x3 with float32 out, 37.6 us at
-3.35 TB/s).  Its plain PyTorch version is `fused_photometric_reference`
-below, with which it agrees bit for bit.
+`_kernel`).  The CUDA source is medseg_tpu_torch/csrc/photometric.cu: a
+thread owns a run of 8 pixels of a row, read with 8-byte loads, the flip a
+reversal in registers, and each warp writes its 32 runs out of shared
+memory with 16-byte stores, 512 contiguous bytes an instruction; other
+widths and misaligned tensors take a scalar path inside the same kernel.
+It is bound by memory (125.8 MB at B=128, 256x256x3 with float32 out,
+37.6 us at 3.35 TB/s).  Its plain PyTorch version is
+`fused_photometric_reference` below, with which it agrees bit for bit.
 
-On the card, `preprocess_eval_batch` is this kernel with alpha=1, beta=0
-and no flip (ops/augment.py).  For a CPU tensor the wrapper runs the plain
-version.  For a CUDA tensor it launches the kernel or raises; it never falls
-back.
+alpha, beta and flip all None is the eval form, (x - mean)/std: the same
+bits as alpha=1, beta=0 and no flip, with no per-sample tensors to build.
+On the card, `preprocess_eval_batch` is one launch of that form
+(ops/augment.py).  For a CPU tensor the wrapper runs the plain version.
+For a CUDA tensor it launches the kernel or raises; it never falls back.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -35,7 +39,7 @@ def _launcher():
     from medseg_tpu_torch.ops.kernels.build import load_library
 
     fn = load_library(SOURCE).cdll.medseg_fused_photometric_u8
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                    + [ctypes.POINTER(ctypes.c_float)] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -54,17 +58,19 @@ def _norm_arrays(mean: tuple, std: tuple):
             _FloatArray(*_scaled(std, "cpu").tolist()))
 
 
-def fused_photometric_reference(images: torch.Tensor, alpha: torch.Tensor,
-                                beta: torch.Tensor, flip: torch.Tensor,
+def fused_photometric_reference(images: torch.Tensor, alpha: Optional[torch.Tensor],
+                                beta: Optional[torch.Tensor], flip: Optional[torch.Tensor],
                                 out_dtype=torch.float32,
                                 mean: Sequence[float] = IMAGENET_MEAN,
                                 std: Sequence[float] = IMAGENET_STD) -> torch.Tensor:
-    """The kernel's plain PyTorch version, in the kernel's operation order."""
+    """The kernel's plain PyTorch version, in the kernel's operation order;
+    alpha, beta and flip all None is the eval form (x - mean)/std."""
     x = images.to(torch.float32)
-    x = torch.where(flip[:, None, None, None], x.flip(2), x)
-    x = x * alpha.to(torch.float32)[:, None, None, None] \
-        + beta.to(torch.float32)[:, None, None, None] * 255.0
-    x = x.clamp(0.0, 255.0)
+    if alpha is not None:
+        x = torch.where(flip[:, None, None, None], x.flip(2), x)
+        x = x * alpha.to(torch.float32)[:, None, None, None] \
+            + beta.to(torch.float32)[:, None, None, None] * 255.0
+        x = x.clamp(0.0, 255.0)
     dev = images.device
     return ((x - _scaled(mean, dev)) / _scaled(std, dev)).to(out_dtype)
 
@@ -78,10 +84,16 @@ def _check(images, alpha, beta, flip, out_dtype, mean, std):
     b, h, w, c = images.shape
     if not (1 <= b <= 65535 and h >= 1 and w >= 1 and 1 <= c <= MAX_CHANNELS):
         raise ValueError(f"unsupported images shape {tuple(images.shape)}")
-    for name, v in (("alpha", alpha), ("beta", beta), ("flip", flip)):
+    scalars = {"alpha": alpha, "beta": beta, "flip": flip}
+    given = [name for name, v in scalars.items() if v is not None]
+    if given and len(given) != len(scalars):
+        raise ValueError(f"alpha, beta and flip are given together or all None "
+                         f"(the eval form), got only {given}")
+    for name in given:
+        v = scalars[name]
         if v.shape != (b,) or v.device != images.device:
             raise ValueError(f"{name} must be [{b}] on {images.device}")
-    if flip.dtype != torch.bool:
+    if flip is not None and flip.dtype != torch.bool:
         raise ValueError(f"flip must be bool, got {flip.dtype}")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
@@ -89,12 +101,13 @@ def _check(images, alpha, beta, flip, out_dtype, mean, std):
         raise ValueError(f"mean/std need {c} values")
 
 
-def fused_photometric(images: torch.Tensor, alpha: torch.Tensor,
-                      beta: torch.Tensor, flip: torch.Tensor,
+def fused_photometric(images: torch.Tensor, alpha: Optional[torch.Tensor],
+                      beta: Optional[torch.Tensor], flip: Optional[torch.Tensor],
                       out_dtype=torch.float32,
                       mean: Sequence[float] = IMAGENET_MEAN,
                       std: Sequence[float] = IMAGENET_STD) -> torch.Tensor:
-    """uint8 [B,H,W,C] images; alpha/beta [B] floats; flip [B] bool.
+    """uint8 [B,H,W,C] images; alpha/beta [B] floats; flip [B] bool; or
+    all three None for the eval form (alpha=1, beta=0, no flip).
 
     Returns (clip(x'*alpha + 255*beta, 0, 255) - 255*mean_c)/(255*std_c) as
     [B,H,W,C] in `out_dtype` (float32 or bfloat16), x' the image flipped
@@ -118,18 +131,22 @@ fused_photometric.launches = 0
 
 
 def _run(launch, stream, images, alpha, beta, flip, out_dtype, mean, std):
-    """The CUDA branch with its launcher and stream given: validate, pack
-    the per-sample scalars, allocate the output on the images' device and
-    launch.  The CPU tests pass a host build of the source here."""
+    """The CUDA branch with its launcher and stream given: validate,
+    allocate the output on the images' device and launch, with null
+    per-sample pointers for the eval form.  The CPU tests pass a host build
+    of the source here."""
     _check(images, alpha, beta, flip, out_dtype, mean, std)
     b, h, w, c = images.shape
-    scalars = torch.stack([alpha.to(torch.float32), beta.to(torch.float32),
-                           flip.to(torch.float32)], -1).contiguous()
+    ptrs = (None, None, None)  # null pointers: the eval form
+    if alpha is not None:
+        # float32 [B] tensors pass as they are, with no device operation
+        scalars = (alpha.to(torch.float32).contiguous(),
+                   beta.to(torch.float32).contiguous(), flip.contiguous())
+        ptrs = tuple(v.data_ptr() for v in scalars)
     out = torch.empty(images.shape, dtype=out_dtype, device=images.device)
     mean_arr, std_arr = _norm_arrays(tuple(mean), tuple(std))
-    err = launch(images.data_ptr(), scalars.data_ptr(), out.data_ptr(),
-                 b, h, w, c, int(out_dtype == torch.bfloat16),
-                 mean_arr, std_arr, stream)
+    err = launch(images.data_ptr(), *ptrs, out.data_ptr(), b, h, w, c,
+                 int(out_dtype == torch.bfloat16), mean_arr, std_arr, stream)
     if err != 0:
         raise RuntimeError(f"photometric kernel launch failed with CUDA error {err}")
     return out

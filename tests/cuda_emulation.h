@@ -47,6 +47,7 @@ inline unsigned char* emu_dynamic_smem = nullptr;
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
 
 struct float4 { float x, y, z, w; };
+struct uint2 { uint32_t x, y; };
 struct uint4 { uint32_t x, y, z, w; };
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -92,6 +93,22 @@ inline float __uint_as_float(uint32_t u) {
   memcpy(&f, &u, 4);
   return f;
 }
+inline uint32_t __float_as_uint(float f) {
+  uint32_t u;
+  memcpy(&u, &f, 4);
+  return u;
+}
+// Byte n of the result is byte s[4n+3:4n] of the 8 bytes {y, x} (x the
+// low four); selectors here never set the sign-replicate bit.
+inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
+  const uint64_t bytes = (uint64_t(y) << 32) | x;
+  uint32_t r = 0;
+  for (int n = 0; n < 4; ++n) {
+    const unsigned k = (s >> (4 * n)) & 7;
+    r |= uint32_t((bytes >> (8 * k)) & 0xff) << (8 * n);
+  }
+  return r;
+}
 // Per-halfword unsigned maximum.
 inline uint32_t __vmaxu2(uint32_t a, uint32_t b) {
   const uint32_t lo = std::max(a & 0xffffu, b & 0xffffu);
@@ -113,6 +130,11 @@ inline thread_local unsigned emu_exchanges = 0;
 
 inline unsigned emu_thread_rank() {
   return threadIdx.x + blockDim.x * (threadIdx.y + blockDim.y * threadIdx.z);
+}
+
+// The 32 lanes of the calling warp meet (every lane of it must call).
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  (*emu_warps)[emu_thread_rank() / 32]->bar.arrive_and_wait();
 }
 
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 with d as C and D:

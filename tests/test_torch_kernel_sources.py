@@ -186,9 +186,24 @@ def test_warp_source_when_line_shifts_clip(emulated, monkeypatch):
                            warp_affine_fast(images, mats, nearest=nearest, **kw))
 
 
+def _photometric_scalars(b, seed):
+    gen = torch.Generator().manual_seed(seed)
+    alpha = 0.9 + 0.2 * torch.rand(b, generator=gen)
+    beta = 0.2 * torch.rand(b, generator=gen) - 0.1
+    flip = torch.arange(b) % 2 == 0
+    return alpha, beta, flip
+
+
+def _photometric_norm(c):
+    """ImageNet's constants for C=3; others of the same scale for C=1, 4."""
+    return {1: ((0.5,), (0.25,)), 3: (IMAGENET_MEAN, IMAGENET_STD),
+            4: (IMAGENET_MEAN + (0.0,), IMAGENET_STD + (1.0 / 255.0,))}[c]
+
+
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_photometric_source_equals_plain_version(emulated, monkeypatch, out_dtype):
-    """Flips, alpha and beta per sample, an odd width: bit for bit."""
+    """Flips, alpha and beta per sample, an odd width (the scalar path):
+    bit for bit."""
     run = _run(P, emulated, monkeypatch)
     gen = torch.Generator().manual_seed(1)
     images = torch.randint(0, 256, (3, 10, 37, 3), generator=gen, dtype=torch.uint8)
@@ -198,6 +213,55 @@ def test_photometric_source_equals_plain_version(emulated, monkeypatch, out_dtyp
     assert torch.equal(
         run(images, alpha, beta, flip, out_dtype, IMAGENET_MEAN, IMAGENET_STD),
         P.fused_photometric_reference(images, alpha, beta, flip, out_dtype))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels", [1, 3, 4])
+@pytest.mark.parametrize("shape", [(3, 6, 48), (2, 9, 256)], ids=["w48", "w256"])
+def test_photometric_source_vector_path(emulated, monkeypatch, shape, channels,
+                                        out_dtype):
+    """W a multiple of 8, aligned tensors: the vector path with its
+    shared-memory stage, flipped and unflipped samples, bit for bit.  Both
+    shapes end a sample inside a warp (36 and 288 runs of 8 pixels), and
+    the second inside a CTA."""
+    run = _run(P, emulated, monkeypatch)
+    b, h, w = shape
+    images = _images(b, h, w, channels, seed=w + channels)
+    alpha, beta, flip = _photometric_scalars(b, seed=channels)
+    mean, std = _photometric_norm(channels)
+    assert torch.equal(run(images, alpha, beta, flip, out_dtype, mean, std),
+                       P.fused_photometric_reference(images, alpha, beta, flip,
+                                                     out_dtype, mean, std))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_photometric_source_misaligned_input(emulated, monkeypatch, out_dtype):
+    """A contiguous view one byte into its storage, W a multiple of 8: the
+    scalar path, bit for bit."""
+    run = _run(P, emulated, monkeypatch)
+    b, h, w, c = 3, 4, 32, 3
+    images = torch.empty(b * h * w * c + 1, dtype=torch.uint8)[1:].view(b, h, w, c)
+    images.copy_(_images(b, h, w, c, seed=7))
+    assert images.data_ptr() % 16 != 0
+    alpha, beta, flip = _photometric_scalars(b, seed=7)
+    assert torch.equal(
+        run(images, alpha, beta, flip, out_dtype, IMAGENET_MEAN, IMAGENET_STD),
+        P.fused_photometric_reference(images, alpha, beta, flip, out_dtype))
+
+
+@pytest.mark.parametrize("width", [48, 37], ids=["vector-path", "scalar-path"])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_photometric_source_eval_form(emulated, monkeypatch, out_dtype, width):
+    """alpha, beta and flip None (null pointers): the plain version's eval
+    form, and the explicit alpha=1, beta=0, no-flip form, bit for bit."""
+    run = _run(P, emulated, monkeypatch)
+    images = _images(3, 6, width, seed=width)
+    got = run(images, None, None, None, out_dtype, IMAGENET_MEAN, IMAGENET_STD)
+    assert torch.equal(got, P.fused_photometric_reference(images, None, None, None,
+                                                          out_dtype))
+    explicit = (torch.ones(3), torch.zeros(3), torch.zeros(3, dtype=torch.bool))
+    assert torch.equal(got, run(images, *explicit, out_dtype, IMAGENET_MEAN,
+                                IMAGENET_STD))
 
 
 @pytest.mark.parametrize("shape", [(2, 32, 32), (1, 64, 40), (3, 36, 68), (3, 44, 72)],

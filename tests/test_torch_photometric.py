@@ -77,10 +77,37 @@ def test_preprocess_eval_batch_card_branch(monkeypatch, dtype):
                         lambda *a, **k: calls.append(a) or P.fused_photometric(*a, **k))
     card, _ = TA.preprocess_eval_batch(torch.from_numpy(images), out_dtype=out_dtype)
     assert len(calls) == 1 and card.dtype == out_dtype
+    assert calls[0][1:4] == (None, None, None)  # the eval form: no tensors built
     assert torch.equal(card, cpu)
     if dtype == "float32":
         want, _ = JA.preprocess_eval_batch(jnp.asarray(images))
         np.testing.assert_array_equal(card.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_none_form_equals_explicit_form_and_jax_eval_exactly(dtype):
+    """alpha, beta and flip None: bit for bit the explicit alpha=1, beta=0,
+    no-flip form, and in float32 JAX's preprocess_eval_batch."""
+    images, *_ = _inputs(6, b=3, h=8, w=16)
+    out_dtype = getattr(torch, dtype)
+    x = torch.from_numpy(images)
+    got = P.fused_photometric(x, None, None, None, out_dtype)
+    assert got.dtype == out_dtype
+    explicit = P.fused_photometric(x, torch.ones(3), torch.zeros(3),
+                                   torch.zeros(3, dtype=torch.bool), out_dtype)
+    assert torch.equal(got, explicit)
+    if dtype == "float32":
+        want, _ = JA.preprocess_eval_batch(jnp.asarray(images))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_check_accepts_the_none_form_and_refuses_a_partial_one():
+    images, alpha, beta, flip = map(torch.from_numpy, _inputs(7, b=2, h=8, w=8))
+    kw = dict(out_dtype=torch.float32, mean=(0.5,) * 3, std=(0.25,) * 3)
+    P._check(images, None, None, None, **kw)
+    for partial in ((alpha, None, None), (None, beta, flip), (alpha, beta, None)):
+        with pytest.raises(ValueError, match="all None"):
+            P._check(images, *partial, **kw)
 
 
 def test_wrapper_runs_plain_version_only_for_cpu_tensors():
