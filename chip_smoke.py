@@ -11,7 +11,8 @@ Run from the root of a checkout.  It
    shapes its paths give it, with the tolerance stated per case, and times
    kernel, plain version and, where there is one, a library call, as device
    time from torch.profiler (the kernel's own launches only, for the
-   kernel; the median of three sessions);
+   kernel; the median of three sessions, or of five when the three
+   spread);
 4. drives three paths at full width, each with every launch count set to 0
    just before it and read just after:
    - aug+infer: a synthetic packed set at 256px, BatchLoader(device_cache=
@@ -27,6 +28,21 @@ Run from the root of a checkout.  It
    - fused stem: the warp kernel's planar bf16 output -> apply_with_stem_
      kernel (one stem-kernel launch) on ResNet18 bf16, against model(x) on
      the same batch in NHWC, both timed by device time in turns;
+   - train: train_model("ResNet18") bf16 on a 1280-sample synthetic set at
+     256px (1024 to train in 8 shuffled steps of 128 from the device cache,
+     256 to validate in 2 batches), 3 epochs with the stage switch after
+     epoch 1, saving; then a resume to epoch 4.  Gates: the logs (both
+     stages, finite losses, the resume's one epoch), exactly one warp
+     launch per train step and one photometric launch per validation
+     batch, the best checkpoint loaded strictly and evaluated, 3 float32
+     stage-2 steps on the card against the same 3 in float64 on the CPU
+     (clipped gradients of step 1, parameters and running statistics after
+     step 3, each within twice the CPU float32 run's own distance),
+     the bf16 step's loss within 5% of the float32 step's, and 20
+     steady-state steps under torch.cuda.set_sync_debug_mode("error").  It
+     prints the stage-2 step rate (host clock), the step's device time
+     split into augment, forward with loss, backward, and clip + AdamW,
+     and its device operations;
 5. prints one JSON line with every kernel's launches, error and times, and
    as its last line {"ok": true, "device": {...}}.
 
@@ -38,11 +54,15 @@ JAX or of the JAX package.
 from __future__ import annotations
 
 import csv
+import functools
 import json
+import math
+import re
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from pathlib import Path
 
 import numpy as np
@@ -61,6 +81,13 @@ SIZE = 256           # IMG_SIZE
 N_SAMPLES = 1024     # 8 batches of 128
 EVAL_SAMPLES = 1000  # eval path: 62 batches of 16 and a ragged 8
 EVAL_BATCH = 16      # EvalConfig.batch_size
+TRAIN_SAMPLES = 1024  # train path: 8 steps of 128 an epoch
+VAL_SAMPLES = 256     # ... and 2 validation batches of 128
+TRAIN_EPOCHS = 3      # stage 1 is epoch 1
+RATE_STEPS = 24       # stage-2 steps timed by host clock
+SYNC_STEPS = 20       # stage-2 steps under set_sync_debug_mode("error")
+PARITY_BATCH = 8      # card against CPU, float32
+PARITY_LR = 1e-5      # ... with the stage-2 optimizer at this lr
 SEED = 0
 PROFILE_SESSIONS = 3     # device_ms: profiler sessions per reading
 PROFILE_MARGIN_S = 0.05  # ... host idle at both ends of each (see _sessions)
@@ -83,8 +110,8 @@ def card_label() -> str:
     return out.strip().splitlines()[0]
 
 
-def _sessions(fn, reps: int):
-    """PROFILE_SESSIONS profiler sessions of `reps` calls of fn(), each after
+def _sessions(fn, reps: int, sessions: int = PROFILE_SESSIONS):
+    """`sessions` profiler sessions of `reps` calls of fn(), each after
     two warm-up calls and with PROFILE_MARGIN_S of host idle at both ends:
     without that margin, a session now and then lost the records of
     launches near its ends, reading a kernel low, or gained some of the
@@ -92,10 +119,11 @@ def _sessions(fn, reps: int):
     session still lost one record (49 of 50 calls, 0 of 1), so the calls
     sit between two marker kernels (MARKER): the record lost is a marker's,
     and no reading counts markers.  Yields each session's device events
-    other than the markers, and says so when a session loses a marker."""
+    other than the markers and user annotations, and says so when a
+    session loses a marker."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(PROFILE_SESSIONS):
+    for _ in range(sessions):
         for _ in range(2):
             fn()
         torch.cuda.synchronize()
@@ -107,7 +135,10 @@ def _sessions(fn, reps: int):
             torch.cuda._sleep(MARKER_CYCLES)
             torch.cuda.synchronize()
             time.sleep(PROFILE_MARGIN_S)
-        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        # a user annotation (optimizer.step records one) spans its kernels
+        # and the gaps between them on the device: not an operation
+        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+                  and not getattr(e, "is_user_annotation", False)]
         markers = sum(e.count for e in events if MARKER in e.key)
         if markers != 2:
             print(f"chip_smoke: a profiler session recorded {markers} of its 2 "
@@ -115,18 +146,23 @@ def _sessions(fn, reps: int):
         yield [e for e in events if MARKER not in e.key]
 
 
-def device_ms(fn, reps: int, kernel: str = "") -> float:
-    """Milliseconds of device time per call of fn(), from torch.profiler:
-    the kernels whose name contains `kernel` (one launch per call), or every
+def session_times(fn, reps: int, kernel: str = "", what: str = "",
+                  lost: int = 0, sessions: int = PROFILE_SESSIONS):
+    """Milliseconds of device time per call of fn() in each of `sessions`
+    profiler sessions of `reps` calls (see _sessions): the
+    kernels whose name contains `kernel` (one launch per call), or every
     kernel and copy that fn() runs.  Host overhead between launches is not
-    counted.  The median over PROFILE_SESSIONS sessions of `reps` calls
-    (see _sessions).  Fails if a session records no such device time, if
-    the sessions record different numbers of device operations (for a
-    named kernel: other than one per call), or if their times differ by
-    more than PROFILE_SPREAD of the median."""
-    what = kernel or "fn"
+    counted.  Returns (times, the last session's five costliest device
+    operations as (ms per call, name)).  Fails if a session records no such
+    device time, or if the sessions record different numbers of device
+    operations (for a named kernel: other than one per call).  `lost`
+    allows a whole fn's sessions that many operations apart: for readings
+    that gate nothing, since one of the train step's sessions of 6000
+    records now and then loses a record besides a marker's, which moves
+    the reading by one kernel's share."""
+    what = what or kernel or "fn"
     times, counts, names = [], [], []
-    for events in _sessions(fn, reps):
+    for events in _sessions(fn, reps, sessions):
         events = [e for e in events if kernel in e.key]
         total_us = sum(e.device_time_total for e in events)
         if total_us <= 0:
@@ -134,13 +170,36 @@ def device_ms(fn, reps: int, kernel: str = "") -> float:
         times.append(total_us / reps / 1e3)
         counts.append(sum(e.count for e in events))
         names.append({e.key[:80]: e.count for e in events})
-    if len(set(counts)) != 1 or (kernel and counts[0] != reps):
+    if max(counts) - min(counts) > (0 if kernel else lost) or (kernel and counts[0] != reps):
         fail(f"the profiler recorded {counts} device operations of {what} in "
-             f"{PROFILE_SESSIONS} sessions of {reps} calls each: {names}")
+             f"{sessions} sessions of {reps} calls each: {names}")
+    top = sorted(((e.device_time_total / reps / 1e3, e.key[:60]) for e in events),
+                 reverse=True)[:5]
+    return times, top
+
+
+def device_ms(fn, reps: int, kernel: str = "") -> float:
+    """The median of session_times.  When its sessions' times differ by
+    more than PROFILE_SPREAD of it, it reads again over PROFILE_SESSIONS + 2
+    sessions and returns their median; it fails unless the middle
+    PROFILE_SESSIONS of those lie within PROFILE_SPREAD of it.  One session
+    of three now and then reads far off the other two (B2 at B=16: 0.0090
+    against 0.0058 ms twice, no record lost), and the retake lets one such
+    session on either side go without moving the reading."""
+    what = kernel or "fn"
+    times, _ = session_times(fn, reps, kernel)
     median = float(np.median(times))
-    if max(times) - min(times) > PROFILE_SPREAD * median:
+    if max(times) - min(times) <= PROFILE_SPREAD * median:
+        return median
+    print(f"chip_smoke: device times of {what} over {PROFILE_SESSIONS} sessions "
+          f"{times} differ by more than {PROFILE_SPREAD:.0%}; reading again")
+    times = sorted(session_times(fn, reps, kernel,
+                                 sessions=PROFILE_SESSIONS + 2)[0])
+    median = float(np.median(times))
+    middle = times[1:-1]
+    if max(middle) - min(middle) > PROFILE_SPREAD * median:
         fail(f"device times of {what} differ by more than {PROFILE_SPREAD:.0%} "
-             f"over {PROFILE_SESSIONS} sessions: {times}")
+             f"over the middle {PROFILE_SESSIONS} of {len(times)} sessions: {times}")
     return median
 
 
@@ -304,11 +363,12 @@ def check_warp_kernel(card: str):
 
 
 def check_photometric_kernel(card: str):
-    """The photometric kernel against its plain version in nine forms, all
+    """The photometric kernel against its plain version in ten forms, all
     at tolerance 0 (same float32 operation order, no FMA): the eval form
     (alpha, beta and flip None, float32 out) and the explicit alpha=1,
-    beta=0, no-flip form, each at the eval path's B=16 and at B=128;
-    sampled alpha, beta and flips with bf16 out at B=128; C=1 and C=4 on the
+    beta=0, no-flip form, each at the eval path's B=16 and at B=128; the
+    eval form with bf16 out at B=128, as the train path validates; sampled
+    alpha, beta and flips with bf16 out at B=128; C=1 and C=4 on the
     vector path; and the scalar path (W=250, and an input one byte past
     16-byte alignment).  Times the B=128 forms and the B=16 forms warm, the
     eval path's form also with a cold L2, beside a same-traffic conversion
@@ -346,6 +406,8 @@ def check_photometric_kernel(card: str):
     # (name, images, (alpha, beta, flip), out dtype, mean/std)
     cases = [(path_case, img16, none, torch.float32, norm3),
              ("eval form f32 B=128", img128, none, torch.float32, norm3),
+             ("eval form bf16 B=128 (train path's validation)", img128, none,
+              torch.bfloat16, norm3),
              ("alpha=1, beta=0, no flip f32 B=16", img16, explicit(EVAL_BATCH),
               torch.float32, norm3),
              ("alpha=1, beta=0, no flip f32 B=128", img128, explicit(BATCH),
@@ -378,7 +440,7 @@ def check_photometric_kernel(card: str):
     clear = scratch.zero_
     kernel_name, copy_name = "photometric_kernel<", "direct_copy_kernel"
     records = {}
-    for name, x, scalars, dtype, norm in cases[:5]:
+    for name, x, scalars, dtype, norm in cases[:6]:
         run = lambda: fused_photometric(x, *scalars, out_dtype=dtype, **norm)
         convert = lambda: x.to(dtype)
         ms = device_ms(run, 100, kernel_name)
@@ -721,6 +783,385 @@ def run_stem_path(card: str):
     return launches
 
 
+EPOCH_LINE = re.compile(r"\[ResNet18\] Ep(\d+): TrainLoss (\S+) \(Acc (\S+)%\) "
+                        r"\| ValLoss (\S+) \| ValAcc (\S+)%")
+
+
+def _epoch_lines(logs, path: str):
+    """(epoch, train loss, val loss) of each epoch line; fails unless every
+    loss is finite."""
+    rows = [(int(m[1]), float(m[2]), float(m[4]))
+            for m in map(EPOCH_LINE.match, logs) if m]
+    if not all(math.isfinite(r[1]) and math.isfinite(r[2]) for r in rows):
+        fail(f"{path}: a logged loss is not finite: {logs}")
+    return rows
+
+
+def _float64_steps(state: dict, images, labels):
+    """The reference for gate 4: the same 3 stage-2 steps in float64 on the
+    CPU (the port's model and optimizer, with the head fed float64 and the
+    label-smoothed CE written out here in float64).  Returns (losses, the
+    step-1 clipped gradients, the state after step 3)."""
+    from medseg_tpu_torch.models.resnet import resnet18
+    from medseg_tpu_torch.train import steps as S
+    from medseg_tpu_torch.train.freeze import all_trainable, set_trainable
+
+    f64 = torch.float64
+    model = resnet18(dtype=f64, device="cpu", dropout=0.0)
+    model.load_state_dict(state, strict=True)
+    model.double()
+    # the head casts its input to float32; here it takes float64
+    model.fc.register_forward_pre_hook(lambda _, args: (args[0].to(f64),) + args[1:])
+    opt = S.build_optimizer(PARITY_LR, 5e-4, 1.0, set_trainable(model.train(), all_trainable))
+    k = 3
+    target = (labels[:, None] == torch.arange(k)).to(f64) * 0.9 + 0.1 / k
+    losses, grads = [], None
+    for i in range(3):
+        loss = -(target * torch.log_softmax(model(images.to(f64)), -1)).sum(-1).mean()
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+        if i == 0:
+            grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    return losses, grads, model.state_dict()
+
+
+def _check_card_against_cpu(card: str, state: dict, images, labels):
+    """Gates 4 and 5: three float32 stage-2 steps (TF32 off) on the card and
+    on the CPU through the port's own step, from the same weights with
+    dropout 0 on one pre-augmented batch; then one bf16 step's loss against
+    the float32 step's.  Fails unless all are within their tolerances.
+
+    Gate 4 holds the card's float32 result against a float64 run of the
+    same steps on the CPU: its distance from it (largest element and L2)
+    may be twice the CPU float32 run's own.  The train-mode gradient at
+    256px is ill-conditioned in float32 (batch statistics over 8*128*128
+    values a channel, through 20 BatchNorms): card and CPU differed by
+    4.3e-3 of the gradient's L2 norm, mostly in early BatchNorm biases,
+    where a fixed gate of 1e-3 had been set, so no fixed tolerance both
+    holds and means something.  Card against CPU is printed as a
+    reading."""
+    from medseg_tpu_torch.models.resnet import resnet18
+    from medseg_tpu_torch.train import steps as S
+    from medseg_tpu_torch.train.freeze import all_trainable, set_trainable
+
+    def setup(device, dtype=torch.float32):
+        model = resnet18(dtype=dtype, device=device, dropout=0.0)
+        model.load_state_dict(state, strict=True)
+        opt = S.build_optimizer(PARITY_LR, 5e-4, 1.0,
+                                set_trainable(model.train(), all_trainable))
+        return model, opt, torch.Generator(device=device).manual_seed(SEED)
+
+    runs = {}
+    for run, device in (("card", "cuda"), ("cpu", "cpu")):
+        model, opt, gen = setup(device)
+        x, y = images.to(device), labels.to(device)
+        losses, grads = [], None
+        for i in range(3):
+            loss, _ = S.cls_train_step(model, opt, x, y, gen, 0.1)
+            losses.append(loss.item())
+            if i == 0:
+                grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+        runs[run] = (losses, grads, {k: v.cpu() for k, v in model.state_dict().items()})
+    runs["float64"] = _float64_steps(state, images, labels)
+
+    def l2(ts) -> float:
+        return math.sqrt(sum(float(t.double().square().sum()) for t in ts))
+
+    def dist(a: str, b: str, pick) -> dict:
+        """Distances of run a from run b over the tensors `pick` gives."""
+        ta, tb = (pick(runs[r]) for r in (a, b))
+        diff = {n: ta[n].double() - tb[n].double() for n in tb}
+        return {"max": max(float(d.abs().max()) for d in diff.values()),
+                "l2": l2(diff.values()), "rel": l2(diff.values()) / l2(tb.values()),
+                "worst": sorted(diff, key=lambda n: l2([diff[n]])
+                                / max(l2([tb[n]]), 1e-30))[-3:]}
+
+    params = list(runs["cpu"][1])  # the parameters' names
+    step1 = lambda run: run[1]  # noqa: E731
+    step3 = lambda run: {n: run[2][n] for n in params}  # noqa: E731
+    stats = lambda run: {k: v for k, v in run[2].items()  # noqa: E731
+                         if k.endswith(("running_mean", "running_var"))}
+    l_card, l_cpu, l_ref = (runs[r][0] for r in ("card", "cpu", "float64"))
+    gmax = max(float(g.abs().max()) for g in runs["float64"][1].values())
+    print(f"[{card}] train path, card vs CPU float32 (TF32 off), ResNet18 B="
+          f"{PARITY_BATCH} at {SIZE}px, stage-2 optimizer lr {PARITY_LR}, 3 steps: "
+          f"losses {l_card} vs {l_cpu} (float64 {l_ref}); largest step-1 |g| "
+          f"{gmax:.3e}")
+    ok = True
+    for what, pick in (("step-1 clipped gradients", step1),
+                       ("parameters after step 3", step3),
+                       ("running statistics after step 3", stats)):
+        d, floor = dist("card", "float64", pick), dist("cpu", "float64", pick)
+        cc = dist("card", "cpu", pick)
+        passed = d["max"] <= 2 * floor["max"] and d["l2"] <= 2 * floor["l2"]
+        ok &= passed
+        print(f"[{card}] train path, {what}: card vs float64 max_abs_err="
+              f"{d['max']:.3e}, L2 {d['l2']:.3e} ({d['rel']:.3e} of float64's); tol "
+              f"twice the CPU float32's distance from float64: max "
+              f"{2 * floor['max']:.3e}, L2 {2 * floor['l2']:.3e}; card vs CPU max "
+              f"{cc['max']:.3e}, L2 {cc['l2']:.3e}; farthest tensors (card vs "
+              f"float64, relative L2) {d['worst']}: {'pass' if passed else 'FAIL'}")
+    # AdamW moves an element by at most ~lr a step whatever its gradient
+    p_max = dist("card", "float64", step3)["max"]
+    if not ok or p_max > 2 * 3 * PARITY_LR:
+        fail(f"train path: the card's float32 steps are farther from float64 "
+             f"than twice the CPU's (or a parameter by {p_max:.3e} > 2*3*lr)")
+
+    model, opt, gen = setup("cuda", torch.bfloat16)
+    bf16_loss, _ = S.cls_train_step(model, opt, images.cuda(), labels.cuda(), gen, 0.1)
+    rel = abs(bf16_loss.item() - l_card[0]) / abs(l_card[0])
+    print(f"[{card}] train path, bf16 vs float32 step loss on the same weights "
+          f"and batch: {bf16_loss.item():.5f} vs {l_card[0]:.5f}, rel {rel:.4f} "
+          f"tol 0.05")
+    if not rel <= 0.05:
+        fail(f"train path: bf16 loss {bf16_loss.item()} is not within 5% of "
+             f"float32's {l_card[0]}")
+
+
+def _batch_norm_reading(card: str, model, x, gen) -> None:
+    """A reading that gates nothing: the device time of forward + backward
+    of the train step's 20 BatchNorms at the step's shapes (bf16
+    activations, channels-last), three ways: the port's BatchNorm2d
+    (torch.native_batch_norm without running statistics, then its running
+    update), F.batch_norm with float32 running statistics (the call that
+    torch's own nn.BatchNorm2d makes, which picks its backend itself), and
+    torch.cudnn_batch_norm, cuDNN's own, with weight, bias and statistics
+    in bf16 (it takes no float32 weight beside bf16 input).  Each prints
+    its costliest device operations, which name the kernels."""
+    import torch.nn.functional as F
+
+    from medseg_tpu_torch.nn.blocks import BatchNorm2d
+
+    inputs = {}
+    hooks = [m.register_forward_pre_hook(
+        lambda m, args: inputs.setdefault(m, args[0].detach().to(m.compute_dtype)))
+        for m in model.modules() if isinstance(m, BatchNorm2d)]
+    with torch.no_grad():
+        model(x, generator=gen)
+    for h in hooks:
+        h.remove()
+    cases = [(m, xi.requires_grad_(), torch.randn_like(xi)) for m, xi in inputs.items()]
+
+    def params(m, dtype):
+        """(weight, bias, running mean, running var): the module's own
+        weight and bias in float32, else leaf copies in `dtype`."""
+        w, b = ((m.weight, m.bias) if dtype == torch.float32 else
+                (p.detach().to(dtype).requires_grad_() for p in (m.weight, m.bias)))
+        return w, b, m.running_mean.to(dtype, copy=True), m.running_var.to(dtype, copy=True)
+
+    f32 = {m: params(m, torch.float32) for m, _, _ in cases}
+    bf16 = {m: params(m, torch.bfloat16) for m, _, _ in cases}
+    ways = {
+        "the port's BatchNorm2d (native_batch_norm)": (lambda m, xi: m(xi), f32),
+        "F.batch_norm": (lambda m, xi: F.batch_norm(
+            xi, *f32[m][2:], *f32[m][:2], True, m.momentum, m.eps), f32),
+        "torch.cudnn_batch_norm (bf16 weight, bias and statistics)": (
+            lambda m, xi: torch.cudnn_batch_norm(
+                xi, *bf16[m], True, m.momentum, m.eps)[0], bf16)}
+    with torch.no_grad():
+        want = [m(xi) for m, xi, _ in cases]
+    shapes = sorted({tuple(xi.shape) for _, xi, _ in cases}, reverse=True)
+    print(f"[{card}] train path, BatchNorm reading: {len(cases)} BatchNorms, "
+          f"inputs {shapes} bf16 channels-last")
+    for way, (bn, p) in ways.items():
+        def fwd_bwd(bn=bn, p=p):
+            for m, xi, gy in cases:
+                torch.autograd.grad(bn(m, xi), (xi, *p[m][:2]), gy)
+        try:
+            with torch.no_grad():
+                err = max((bn(m, xi).float() - w.float()).abs().max().item()
+                          for (m, xi, _), w in zip(cases, want))
+            times, top = session_times(fwd_bwd, 5, what=way, lost=1)
+        except RuntimeError as e:  # cuDNN may refuse the dtype or layout
+            print(f"[{card}] train path, BatchNorm forward + backward through "
+                  f"{way}: not run ({str(e).splitlines()[0][:200]})")
+            continue
+        print(f"[{card}] train path, BatchNorm forward + backward through {way}: "
+              f"{float(np.median(times)):.4f} ms per step's {len(cases)} (median of sessions "
+              f"{[round(t, 4) for t in times]}); forward max_abs_err vs the port's "
+              f"{err:.3e}; costliest operations (ms per call): "
+              f"{[(round(t, 4), n) for t, n in top]}")
+
+
+def run_train_path(card: str):
+    """`medseg train ResNet18` at full width, bf16, 256px; returns the
+    launches of the 3-epoch run."""
+    from medseg_tpu_torch.core.config import AugmentConfig, EvalConfig, TrainConfig
+    from medseg_tpu_torch.data.loader import BatchLoader
+    from medseg_tpu_torch.data.synthetic import synthetic_cls
+    from medseg_tpu_torch.eval.harness import evaluate_model, load_model_bundle
+    from medseg_tpu_torch.models.resnet import resnet18
+    from medseg_tpu_torch.ops.augment import augment_batch
+    from medseg_tpu_torch.train import losses as L
+    from medseg_tpu_torch.train import steps as S
+    from medseg_tpu_torch.train import train_model
+    from medseg_tpu_torch.train.freeze import all_trainable, set_trainable
+
+    ds = synthetic_cls(n=TRAIN_SAMPLES + VAL_SAMPLES, img_size=SIZE, seed=SEED)
+    train_loader = BatchLoader(ds, BATCH, shuffle=True, seed=SEED,
+                               indices=np.arange(TRAIN_SAMPLES), device_cache=True)
+    val_loader = BatchLoader(ds, BATCH, shuffle=False, device_cache=True,
+                             indices=np.arange(TRAIN_SAMPLES, TRAIN_SAMPLES + VAL_SAMPLES))
+    n_steps, n_val = len(train_loader), len(val_loader)
+    (HERE / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        cfg = dict(stage1_epochs=1, compute_dtype="bfloat16", save_root=tmp)
+        logs = []
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = train_model("ResNet18", train_loader, val_loader,
+                          TrainConfig(epochs=TRAIN_EPOCHS, **cfg), AugmentConfig(),
+                          save=True, log=logs.append)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts("train path", {
+            "warp_affine": TRAIN_EPOCHS * n_steps,
+            "fused_photometric": TRAIN_EPOCHS * n_val})
+        for line in logs:
+            print(f"  {line.strip()}")
+        rows = _epoch_lines(logs, "train path")
+        stages = [any(f"STAGE {k}" in line for line in logs) for k in (1, 2)]
+        if [r[0] for r in rows] != [1, 2, 3] or not all(stages):
+            fail(f"train path: expected STAGE 1, STAGE 2 and epochs 1-3: {logs}")
+        logs2 = []
+        train_model("ResNet18", train_loader, val_loader,
+                    TrainConfig(epochs=TRAIN_EPOCHS + 1, **cfg), AugmentConfig(),
+                    save=True, resume=True, log=logs2.append)
+        rows2 = _epoch_lines(logs2, "train path resume")
+        if ([r[0] for r in rows2] != [TRAIN_EPOCHS + 1]
+                or f"Resumed ResNet18 from epoch {TRAIN_EPOCHS}" not in "\n".join(logs2)):
+            fail(f"train path: the resume did not run epoch {TRAIN_EPOCHS + 1} "
+                 f"alone: {logs2}")
+        print(f"  {logs2[0].strip()}\n  {logs2[1].strip()}")
+
+        state = load_model_bundle("ResNet18", tmp, seg=False)
+        if state is None:
+            fail(f"train path: no best checkpoint was written: {logs}")
+        resnet18().load_state_dict(state, strict=True)
+        ev = evaluate_model("ResNet18", val_loader, None,
+                            EvalConfig(weights_root=tmp), log=lambda *_: None)
+        if ev["confusion_matrix"].sum() != VAL_SAMPLES:
+            fail(f"train path: the best checkpoint's eval counts "
+                 f"{ev['confusion_matrix'].sum()} samples")
+    print(f"[{card}] train path, ResNet18 bf16 B={BATCH} at {SIZE}px, {TRAIN_EPOCHS} "
+          f"epochs of {n_steps} steps + {n_val} validation batches (seed {SEED}): "
+          f"{wall:.3f} s (host clock, model init, checkpoints and the first "
+          f"steps' cuDNN plans included); the best checkpoint loads strictly "
+          f"and evaluates to {ev['accuracy']:.2f}% on the validation split")
+
+    # the trained weights and one batch augmented once, for gates 4 and 5 at
+    # the end of the path
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    images, labels = next(iter(val_loader))
+    x, _ = augment_batch(gen, images[:PARITY_BATCH].contiguous())
+    parity = ({k: v.cpu() for k, v in res.model.state_dict().items()}, x.cpu(),
+              labels[:PARITY_BATCH].cpu())
+
+    # the stage-2 step at full width: rate, synchronization, device time
+    model = res.model.train()
+    opt = S.build_optimizer(1e-6, 5e-4, 1.0, set_trainable(model, all_trainable))
+
+    def prep(g, imgs, targets):
+        return augment_batch(g, imgs, out_dtype=torch.bfloat16)[0], targets
+
+    def step(imgs, targets):
+        return S.cls_train_step(model, opt, imgs, targets, gen, 0.1, prep)
+
+    def epochs():
+        while True:
+            yield from train_loader
+
+    batches = epochs()
+    next_batch = functools.partial(next, batches)
+    for _ in range(3):  # warm-up: the optimizer's state, cuDNN plans
+        step(*next_batch())
+    torch.cuda.synchronize()
+    loss_acc = torch.zeros((), device="cuda")
+    t0 = time.perf_counter()
+    for _ in range(RATE_STEPS):
+        loss, _ = step(*next_batch())
+        loss_acc += loss
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / RATE_STEPS
+    if not math.isfinite(loss_acc.item()):
+        fail("train path: a stage-2 step's loss is not finite")
+
+    print(f"[{card}] train path, stage-2 step ResNet18 bf16 B={BATCH} at {SIZE}px: "
+          f"{BATCH / step_s:.1f} img/s ({step_s * 1e3:.3f} ms/step, host clock over "
+          f"{RATE_STEPS} steps from the device-cached loader, ending in a "
+          f"synchronize)")
+
+    # gate 6; like gates 4 and 5 its failure is raised at the end of the
+    # path, after the measurements
+    sync_fault = None
+    corr_acc = torch.zeros((), dtype=torch.int64, device="cuda")
+    for _ in range(SYNC_STEPS):
+        imgs, targets = next_batch()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss, corr = step(imgs, targets)
+            loss_acc += loss
+            corr_acc += corr
+        except RuntimeError:
+            sync_fault = traceback.format_exc()
+            break
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    if sync_fault is None:
+        print(f"[{card}] train path: {SYNC_STEPS} stage-2 steps (augment -> forward "
+              f"-> backward -> clip -> AdamW, loss and correct accumulated on the "
+              f"card) ran under set_sync_debug_mode('error') without a "
+              f"synchronization; correct {int(corr_acc)} of {SYNC_STEPS * BATCH}")
+
+    imgs, targets = next_batch()
+    xb = prep(gen, imgs, targets)[0]
+
+    def forward_loss():
+        return L.cross_entropy(model(xb, generator=gen), targets, 0.1)
+
+    def forward_backward():
+        opt.zero_grad(set_to_none=True)
+        forward_loss().backward()
+
+    # The split is a reading, not a gate: each part prints its sessions and
+    # its costliest device operations, and a spread fails nothing
+    parts = {"whole step": (lambda: step(imgs, targets), 10),
+             "augment": (lambda: prep(gen, imgs, targets), 20),
+             "forward with loss": (forward_loss, 10),
+             "forward + backward": (forward_backward, 10),
+             "clip + AdamW": (opt.step, 20)}
+    split = {}
+    for part, (fn, reps) in parts.items():
+        times, top = session_times(fn, reps, what=part, lost=1)
+        split[part] = float(np.median(times))
+        print(f"[{card}] train path, device time of {part}: {split[part]:.4f} ms "
+              f"(median of sessions {[round(t, 4) for t in times]}); costliest "
+              f"operations (ms per call): {[(round(t, 4), n) for t, n in top]}")
+    ops = [sum(e.count for e in events)
+           for events in _sessions(lambda: step(imgs, targets), 1)]
+    whole_ms, fb_ms = split["whole step"], split["forward + backward"]
+    idle = 1.0 - whole_ms / (step_s * 1e3)
+    print(f"[{card}] train path, stage-2 step: device time {whole_ms:.4f} ms against "
+          f"{step_s * 1e3:.3f} ms of host clock, so the card idles {idle:.1%} of "
+          f"the step")
+    print(f"[{card}] train path, device time split (profiler, median of "
+          f"{PROFILE_SESSIONS} sessions): augment {split['augment']:.4f} ms, "
+          f"forward with loss {split['forward with loss']:.4f} ms, backward "
+          f"{fb_ms - split['forward with loss']:.4f} ms (forward + backward "
+          f"{fb_ms:.4f}), clip + AdamW {split['clip + AdamW']:.4f} ms; sum "
+          f"{split['augment'] + fb_ms + split['clip + AdamW']:.4f} vs the whole "
+          f"step {whole_ms:.4f}; device operations per step {ops} "
+          f"({PROFILE_SESSIONS} sessions of one step)")
+    _batch_norm_reading(card, model, xb, gen)
+    _check_card_against_cpu(card, *parity)
+    if sync_fault is not None:
+        fail(f"train path: a train step synchronized with the host:\n{sync_fault}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -757,6 +1198,7 @@ def main() -> int:
     launches = {"warp_affine": run_main_path(card)["warp_affine"],
                 "fused_photometric": run_eval_path(card)["fused_photometric"],
                 "stem_conv_pool": run_stem_path(card)["stem_conv_pool"]}
+    run_train_path(card)
 
     modules = {"warp_affine": warp_kernel, "fused_photometric": photometric,
                "stem_conv_pool": stem_kernel}

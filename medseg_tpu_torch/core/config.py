@@ -7,6 +7,7 @@ reproduce the reference's hardcoded ones (reference utils/trainer.py:28-49).
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 from typing import Sequence
 
 CLASSES: tuple[str, str, str] = ("COVID", "Healthy", "Non-COVID")
@@ -46,3 +47,39 @@ class EvalConfig:
     threshold: float = 0.5
     results_dir: str = "results"
     weights_root: str = "weights"
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training recipe; defaults are the reference's hardcoded values.
+
+    Two-stage classification recipe (reference utils/helpers.py:258-311):
+    stage 1 = 5 epochs head-only at lr 1e-4 (cosine), stage 2 = remaining
+    epochs full-network at `lr` with ReduceLROnPlateau(max, 0.1, patience 3).
+    Segmentation: all-unfrozen AdamW at `lr` with cosine annealing.
+    """
+
+    epochs: int = 20
+    lr: float = 1e-6
+    weight_decay: float = 5e-4
+    stage1_epochs: int = 5
+    stage1_lr: float = 1e-4
+    label_smoothing: float = 0.1
+    grad_clip_norm: float = 1.0
+    plateau_factor: float = 0.1
+    plateau_patience: int = 3
+    early_stop_patience: int = 10
+    cls_batch_size: int = 16
+    seg_batch_size: int = 8
+    val_fraction: float = 0.2  # 80/20 random_split of train CSV (trainer.py:128-130)
+    dropout: float = 0.5
+    save_root: str = "weights"
+    compute_dtype: str = "bfloat16"
+
+    @property
+    def cls_save_dir(self) -> Path:
+        return Path(self.save_root) / "classification_models"
+
+    @property
+    def seg_save_dir(self) -> Path:
+        return Path(self.save_root) / "segmentation_models"

@@ -16,12 +16,18 @@ the pooled features and the head are float32.
 `apply_with_pallas_stem`) is the inference forward through the fused stem
 kernel: bn1 folded into conv1, one kernel for conv + BN + ReLU + maxpool,
 and the deep stages fed through `skip_stem`.
+
+The factories initialize as torch does, from its global generator.
+`init_weights` re-initializes a model as flax does, from an explicit
+generator; the trainer starts from it, so a run from scratch trains the
+network the JAX package trains.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Sequence, Type
+import math
+from typing import Optional, Sequence, Type
 
 import torch
 import torch.nn.functional as F
@@ -140,9 +146,37 @@ class ResNetClassifier(ResNetEncoder):
         super().__init__(block, stage_sizes, dtype)
         self.fc = ClassifierHead(self.out_channels, num_classes, dropout)
 
-    def forward(self, x: torch.Tensor, skip_stem: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, skip_stem: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """generator: what the head's dropout draws from in training mode."""
         feats = super().forward(x, skip_stem)
-        return self.fc(global_avg_pool(feats).to(torch.float32))
+        return self.fc(global_avg_pool(feats).to(torch.float32), generator)
+
+
+# The standard deviation of a unit normal truncated to (-2, 2).
+_TRUNCATED_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Re-initialize `model` in place as flax initializes the JAX package's
+    ResNet, drawing from `generator` (on the model's device):
+    - Conv and Dense kernels: lecun_normal, a normal truncated to +-2 std
+      with variance 1/fan_in (fan_in = in_channels * kh * kw, or
+      in_features), as flax's variance_scaling computes it;
+    - Dense bias 0; BatchNorm scale 1, bias 0, running mean 0, var 1.
+    torch's default, kaiming_uniform_(a=sqrt(5)), has a sqrt(3)-smaller
+    std.  The draws are not JAX's numbers; the distribution is."""
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            std = math.sqrt(1.0 / m.weight[0].numel()) / _TRUNCATED_STD
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
+    return model
 
 
 def apply_with_stem_kernel(model: ResNetClassifier, x: torch.Tensor,

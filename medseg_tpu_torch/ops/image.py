@@ -96,9 +96,14 @@ def shift_scale_rotate_matrix(angle_deg, scale, dx, dy, h: int, w: int) -> torch
 
 
 def hflip_matrix(w: int, device=None) -> torch.Tensor:
-    """dst->src matrix for a horizontal flip."""
-    return torch.tensor([[-1.0, 0.0, w - 1.0], [0.0, 1.0, 0.0]],
-                        dtype=torch.float32, device=device)
+    """dst->src matrix for a horizontal flip.  Built on the device by fill
+    kernels: a host tensor copied to the card (torch.tensor(..., device=),
+    or `m[0, 0] = -1.0`, which copies a host scalar) would synchronize the
+    train step."""
+    m = torch.eye(2, 3, dtype=torch.float32, device=device)
+    m[0, 0].fill_(-1.0)
+    m[0, 2].fill_(w - 1.0)
+    return m
 
 
 def compose_affine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -110,8 +115,7 @@ def compose_affine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def identity_affine(batch_shape=(), device=None) -> torch.Tensor:
-    eye = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]],
-                       dtype=torch.float32, device=device)
+    eye = torch.eye(2, 3, dtype=torch.float32, device=device)
     return eye.expand(*batch_shape, 2, 3)
 
 

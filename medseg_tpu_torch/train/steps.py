@@ -1,0 +1,110 @@
+"""The optimizer stack and the classification train and eval steps.
+
+Counterpart of medseg_tpu/train/steps.py:32-56 (optimizer), :68-95 (train
+step) and :274-294 (eval step).  The optimizer holds only the trainable
+parameters (train/freeze.py); its step clips their gradients by global norm
+as optax's clip_by_global_norm does, then applies AdamW.  The learning rate
+lives in the param groups and is set per epoch from the host.
+
+No step reads a value back to the host: the clip decides with
+`torch.where` on the card, and loss and correct count are returned as
+device tensors for the caller to accumulate.  In bf16 the parameters stay
+float32 and the convs cast them per forward (nn/blocks.py), so gradients
+reach them through the cast, as with flax's `dtype`: no autocast, no loss
+scaling.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Iterable, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from medseg_tpu_torch.train import losses
+
+Prep = Callable[[torch.Generator, torch.Tensor, torch.Tensor],
+                Tuple[torch.Tensor, torch.Tensor]]
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """optax.clip_by_global_norm in place: g * (max_norm / |g|) where the
+    global norm |g| >= max_norm, g unchanged below it (no epsilon, unlike
+    clip_grad_norm_).  Returns the norm before clipping, on the device."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
+    torch._foreach_mul_(grads, scale)
+    return norm
+
+
+class ClippedAdamW(torch.optim.AdamW):
+    """AdamW whose step first clips the gradients of its parameters by
+    global norm (optax.chain(clip_by_global_norm, adamw))."""
+
+    def __init__(self, params: Iterable[nn.Parameter], lr: float,
+                 weight_decay: float, clip_norm: float):
+        params = list(params)
+        # fused: one multi-tensor kernel per step on the card
+        super().__init__(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                         weight_decay=weight_decay,
+                         fused=params[0].is_cuda or None)
+        self.clip_norm = clip_norm
+
+    def step(self, closure=None):
+        grads = [p.grad for group in self.param_groups for p in group["params"]
+                 if p.grad is not None]
+        clip_by_global_norm_(grads, self.clip_norm)
+        return super().step(closure)
+
+
+def build_optimizer(lr: float, weight_decay: float, clip_norm: float,
+                    trainable: Iterable[nn.Parameter]) -> ClippedAdamW:
+    """Global-norm clip + AdamW(betas 0.9/0.999, eps 1e-8) over `trainable`
+    only: frozen parameters are absent, so they get no update, no weight
+    decay and no share of the norm."""
+    return ClippedAdamW(trainable, lr, weight_decay, clip_norm)
+
+
+def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+
+
+def get_learning_rate(optimizer: torch.optim.Optimizer) -> float:
+    return float(optimizer.param_groups[0]["lr"])
+
+
+def cls_train_step(model: nn.Module, optimizer: ClippedAdamW,
+                   images: torch.Tensor, labels: torch.Tensor,
+                   gen: torch.Generator, label_smoothing: float = 0.1,
+                   prep: Optional[Prep] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One step: prep (the augmentation, drawing from `gen`) -> train-mode
+    forward (dropout drawing from `gen`) -> label-smoothed CE -> backward
+    -> clip + AdamW.  The model is in training mode.  Returns (loss,
+    correct) as device scalars; the clipped gradients stay in .grad."""
+    if prep is not None:
+        images, labels = prep(gen, images, labels)
+    out = model(images, generator=gen)
+    loss = losses.cross_entropy(out, labels, label_smoothing)
+    optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    optimizer.step()
+    correct = (out.detach().argmax(-1) == labels).sum()
+    return loss.detach(), correct
+
+
+@torch.no_grad()
+def cls_eval_step(model: nn.Module, images: torch.Tensor, labels: torch.Tensor,
+                  n_valid: int, label_smoothing: float = 0.1
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(loss_sum, correct, preds) over the first n_valid rows: pad rows
+    (repeats of the last sample, loader pad_to_multiple) add nothing.  The
+    model is in eval mode."""
+    out = model(images)
+    valid = losses.valid_mask(images.shape[0], n_valid, out.device)
+    loss_sum = (losses.per_sample_cross_entropy(out, labels, label_smoothing)
+                * valid).sum()
+    preds = out.argmax(-1)
+    correct = ((preds == labels) & (valid > 0)).sum()
+    return loss_sum, correct, preds

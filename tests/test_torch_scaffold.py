@@ -36,7 +36,7 @@ def test_import_of_every_module_leaves_jax_out():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 25  # every subpackage and module
+    assert int(out.stdout.split()[-1]) >= 32  # every subpackage and module
 
 
 def _imported_roots(path: Path):
@@ -72,6 +72,20 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     assert images.device.type == "cpu"
     assert harness.test_all_models(cpu_loader, None, cfg, log=lambda *_: None,
                                    device="cpu") == {}
+
+
+def test_train_model_raises_without_a_card(monkeypatch, tmp_path):
+    from medseg_tpu_torch.core.config import TrainConfig
+    from medseg_tpu_torch.train import train_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    loader = BatchLoader(synthetic_cls(n=4, img_size=8), 2, shuffle=False, device="cpu")
+    cfg = TrainConfig(epochs=1, save_root=str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_model("ResNet18", loader, loader, cfg, log=print)
+    with pytest.raises(NotImplementedError, match="A.8"):
+        train_model("ResNetUnet", loader, loader, cfg, log=print, device="cpu")
+    assert not tmp_path.exists() or not any(tmp_path.iterdir())
 
 
 def test_every_kernel_source_is_built_and_wrapped():
