@@ -13,7 +13,7 @@ Run from the root of a checkout.  It
    time from torch.profiler (the kernel's own launches only, for the
    kernel; the median of three sessions, or of five when the three
    spread);
-4. drives three paths at full width, each with every launch count set to 0
+4. drives five paths at full width, each with every launch count set to 0
    just before it and read just after:
    - aug+infer: a synthetic packed set at 256px, BatchLoader(device_cache=
      True), augment_batch (one warp-kernel launch with the photometric
@@ -43,6 +43,23 @@ Run from the root of a checkout.  It
      prints the stage-2 step rate (host clock), the step's device time
      split into augment, forward with loss, backward, and clip + AdamW,
      and its device operations;
+   - seg: train_model("ResNetUnet") bf16 at 256px, B=8 (ResNet50 encoder
+     frozen, five ConvTranspose decoder stages) on 160 synthetic_seg
+     samples (128 to train in 16 shuffled steps from the device cache, 32
+     to validate in 4 batches), 3 epochs and a resume to epoch 4.  Gates:
+     the logs, exactly one warp launch (the mask as its 4th plane, float32
+     out) per step and one photometric launch per validation batch, the
+     encoder's parameters bit for bit their initial values while its
+     running statistics and the decoder's weights moved, the best
+     checkpoint loaded strictly and evaluated by test_all_models (one
+     photometric launch per batch of 16) into the segmentation CSV, read
+     back; gates 4 and 5 as in train for 3 float32 seg steps; the mask
+     gate (the card's fused augmentation against the CPU branch on the
+     same AugmentParams: images within 1e-3, masks apart only on region
+     edges); 20 steps without a synchronization.  Readings: the seg step's
+     rate, device split and its ConvTranspose and BatchNorm shares, B1's
+     C=4 float32 form at B=8 and 128 beside its bound, and seg_e2e
+     (4-plane augment + ResNetUnet bf16 + sigmoid > 0.5 at B=128);
 5. prints one JSON line with every kernel's launches, error and times, and
    as its last line {"ok": true, "device": {...}}.
 
@@ -88,6 +105,12 @@ RATE_STEPS = 24       # stage-2 steps timed by host clock
 SYNC_STEPS = 20       # stage-2 steps under set_sync_debug_mode("error")
 PARITY_BATCH = 8      # card against CPU, float32
 PARITY_LR = 1e-5      # ... with the stage-2 optimizer at this lr
+SEG_BATCH = 8         # seg path: TrainConfig.seg_batch_size
+SEG_TRAIN = 128       # ... 16 steps of 8 an epoch
+SEG_VAL = 32          # ... and 4 validation batches of 8
+SEG_EPOCHS = 3
+SEG_PARITY_BATCH = 4  # card against CPU, float32 (the CPU's float64 steps)
+SEG_E2E_BATCHES = 4   # seg_e2e reading: batches of BATCH
 SEED = 0
 PROFILE_SESSIONS = 3     # device_ms: profiler sessions per reading
 PROFILE_MARGIN_S = 0.05  # ... host idle at both ends of each (see _sessions)
@@ -363,11 +386,12 @@ def check_warp_kernel(card: str):
 
 
 def check_photometric_kernel(card: str):
-    """The photometric kernel against its plain version in ten forms, all
-    at tolerance 0 (same float32 operation order, no FMA): the eval form
-    (alpha, beta and flip None, float32 out) and the explicit alpha=1,
-    beta=0, no-flip form, each at the eval path's B=16 and at B=128; the
-    eval form with bf16 out at B=128, as the train path validates; sampled
+    """The photometric kernel against its plain version in eleven forms,
+    all at tolerance 0 (same float32 operation order, no FMA): the eval
+    form (alpha, beta and flip None, float32 out) and the explicit alpha=1,
+    beta=0, no-flip form, each at the eval path's B=16 (the seg eval's
+    too) and at B=128; the eval form with bf16 out at B=128 and B=8, as
+    the train and seg paths validate; sampled
     alpha, beta and flips with bf16 out at B=128; C=1 and C=4 on the
     vector path; and the scalar path (W=250, and an input one byte past
     16-byte alignment).  Times the B=128 forms and the B=16 forms warm, the
@@ -422,7 +446,9 @@ def check_photometric_kernel(card: str):
              ("scalar path: W=250, sampled, f32 B=8", images(8, w=250), sampled(8),
               torch.float32, norm3),
              ("scalar path: input 1 byte past 16-byte alignment, sampled, bf16 B=8",
-              misaligned, sampled(8), torch.bfloat16, norm3)]
+              misaligned, sampled(8), torch.bfloat16, norm3),
+             ("eval form bf16 B=8 (seg path's validation)", images(SEG_BATCH), none,
+              torch.bfloat16, norm3)]
     errs = {}
     for name, x, scalars, dtype, norm in cases:
         got = fused_photometric(x, *scalars, out_dtype=dtype, **norm)
@@ -783,88 +809,69 @@ def run_stem_path(card: str):
     return launches
 
 
-EPOCH_LINE = re.compile(r"\[ResNet18\] Ep(\d+): TrainLoss (\S+) \(Acc (\S+)%\) "
-                        r"\| ValLoss (\S+) \| ValAcc (\S+)%")
+EPOCH_LINE = re.compile(r"\[ResNet18\] Ep(?P<ep>\d+): TrainLoss (?P<train>\S+) "
+                        r"\(Acc \S+%\) \| ValLoss (?P<val>\S+) \| ValAcc \S+%")
+SEG_EPOCH_LINE = re.compile(r"\[ResNetUnet\] Ep(?P<ep>\d+): TrainLoss (?P<train>\S+) "
+                            r"\| ValLoss (?P<val>\S+) \| IoU (?P<iou>\S+)")
 
 
-def _epoch_lines(logs, path: str):
+def _epoch_lines(logs, path: str, pattern=EPOCH_LINE):
     """(epoch, train loss, val loss) of each epoch line; fails unless every
     loss is finite."""
-    rows = [(int(m[1]), float(m[2]), float(m[4]))
-            for m in map(EPOCH_LINE.match, logs) if m]
+    rows = [(int(m["ep"]), float(m["train"]), float(m["val"]))
+            for m in map(pattern.match, logs) if m]
     if not all(math.isfinite(r[1]) and math.isfinite(r[2]) for r in rows):
         fail(f"{path}: a logged loss is not finite: {logs}")
     return rows
 
 
-def _float64_steps(state: dict, images, labels):
-    """The reference for gate 4: the same 3 stage-2 steps in float64 on the
-    CPU (the port's model and optimizer, with the head fed float64 and the
-    label-smoothed CE written out here in float64).  Returns (losses, the
-    step-1 clipped gradients, the state after step 3)."""
-    from medseg_tpu_torch.models.resnet import resnet18
-    from medseg_tpu_torch.train import steps as S
-    from medseg_tpu_torch.train.freeze import all_trainable, set_trainable
+def _check_card_against_cpu(card: str, path: str, what: str, build, step, loss64,
+                            images, targets):
+    """Gates 4 and 5 of a train path: three float32 steps (TF32 off) on the
+    card and on the CPU through the port's own step, from the same weights
+    on one pre-augmented batch; then one bf16 step's loss against the
+    float32 step's.  Fails unless all are within their tolerances.
 
+    build(device, dtype) -> (model in training mode, optimizer over its
+    path's trainable parameters at PARITY_LR), from the path's weights; a
+    float64 model computes in float64 throughout.  step(model, optimizer,
+    x, y, generator) -> the loss (the port's train step).  loss64(model, x,
+    y) -> the path's loss written out in float64.
+
+    Gate 4 holds the card's float32 result against a float64 run of the
+    same steps on the CPU: its distance from it (largest element and L2)
+    may be twice the CPU float32 run's own.  The train-mode gradient at
+    256px is ill-conditioned in float32 (batch statistics over B*128*128
+    values a channel, through the BatchNorms): card and CPU differed by
+    4.3e-3 of ResNet18's gradient L2 norm, mostly in early BatchNorm
+    biases, where a fixed gate of 1e-3 had been set, so no fixed tolerance
+    both holds and means something.  Card against CPU is printed as a
+    reading."""
+    runs = {}
+    for run, device in (("card", "cuda"), ("cpu", "cpu")):
+        model, opt = build(device, torch.float32)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        x, y = images.to(device), targets.to(device)
+        losses, grads = [], None
+        for i in range(3):
+            losses.append(step(model, opt, x, y, gen).item())
+            if i == 0:
+                grads = {n: p.grad.cpu() for n, p in model.named_parameters()
+                         if p.grad is not None}
+        runs[run] = (losses, grads, {k: v.cpu() for k, v in model.state_dict().items()})
     f64 = torch.float64
-    model = resnet18(dtype=f64, device="cpu", dropout=0.0)
-    model.load_state_dict(state, strict=True)
-    model.double()
-    # the head casts its input to float32; here it takes float64
-    model.fc.register_forward_pre_hook(lambda _, args: (args[0].to(f64),) + args[1:])
-    opt = S.build_optimizer(PARITY_LR, 5e-4, 1.0, set_trainable(model.train(), all_trainable))
-    k = 3
-    target = (labels[:, None] == torch.arange(k)).to(f64) * 0.9 + 0.1 / k
+    model, opt = build("cpu", f64)
     losses, grads = [], None
     for i in range(3):
-        loss = -(target * torch.log_softmax(model(images.to(f64)), -1)).sum(-1).mean()
+        loss = loss64(model, images.to(f64), targets)
         opt.zero_grad(set_to_none=True)
         loss.backward()
         opt.step()
         losses.append(loss.item())
         if i == 0:
-            grads = {n: p.grad.clone() for n, p in model.named_parameters()}
-    return losses, grads, model.state_dict()
-
-
-def _check_card_against_cpu(card: str, state: dict, images, labels):
-    """Gates 4 and 5: three float32 stage-2 steps (TF32 off) on the card and
-    on the CPU through the port's own step, from the same weights with
-    dropout 0 on one pre-augmented batch; then one bf16 step's loss against
-    the float32 step's.  Fails unless all are within their tolerances.
-
-    Gate 4 holds the card's float32 result against a float64 run of the
-    same steps on the CPU: its distance from it (largest element and L2)
-    may be twice the CPU float32 run's own.  The train-mode gradient at
-    256px is ill-conditioned in float32 (batch statistics over 8*128*128
-    values a channel, through 20 BatchNorms): card and CPU differed by
-    4.3e-3 of the gradient's L2 norm, mostly in early BatchNorm biases,
-    where a fixed gate of 1e-3 had been set, so no fixed tolerance both
-    holds and means something.  Card against CPU is printed as a
-    reading."""
-    from medseg_tpu_torch.models.resnet import resnet18
-    from medseg_tpu_torch.train import steps as S
-    from medseg_tpu_torch.train.freeze import all_trainable, set_trainable
-
-    def setup(device, dtype=torch.float32):
-        model = resnet18(dtype=dtype, device=device, dropout=0.0)
-        model.load_state_dict(state, strict=True)
-        opt = S.build_optimizer(PARITY_LR, 5e-4, 1.0,
-                                set_trainable(model.train(), all_trainable))
-        return model, opt, torch.Generator(device=device).manual_seed(SEED)
-
-    runs = {}
-    for run, device in (("card", "cuda"), ("cpu", "cpu")):
-        model, opt, gen = setup(device)
-        x, y = images.to(device), labels.to(device)
-        losses, grads = [], None
-        for i in range(3):
-            loss, _ = S.cls_train_step(model, opt, x, y, gen, 0.1)
-            losses.append(loss.item())
-            if i == 0:
-                grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
-        runs[run] = (losses, grads, {k: v.cpu() for k, v in model.state_dict().items()})
-    runs["float64"] = _float64_steps(state, images, labels)
+            grads = {n: p.grad.clone() for n, p in model.named_parameters()
+                     if p.grad is not None}
+    runs["float64"] = (losses, grads, model.state_dict())
 
     def l2(ts) -> float:
         return math.sqrt(sum(float(t.double().square().sum()) for t in ts))
@@ -878,26 +885,25 @@ def _check_card_against_cpu(card: str, state: dict, images, labels):
                 "worst": sorted(diff, key=lambda n: l2([diff[n]])
                                 / max(l2([tb[n]]), 1e-30))[-3:]}
 
-    params = list(runs["cpu"][1])  # the parameters' names
+    params = list(runs["cpu"][1])  # the trainable parameters' names
     step1 = lambda run: run[1]  # noqa: E731
     step3 = lambda run: {n: run[2][n] for n in params}  # noqa: E731
     stats = lambda run: {k: v for k, v in run[2].items()  # noqa: E731
                          if k.endswith(("running_mean", "running_var"))}
     l_card, l_cpu, l_ref = (runs[r][0] for r in ("card", "cpu", "float64"))
     gmax = max(float(g.abs().max()) for g in runs["float64"][1].values())
-    print(f"[{card}] train path, card vs CPU float32 (TF32 off), ResNet18 B="
-          f"{PARITY_BATCH} at {SIZE}px, stage-2 optimizer lr {PARITY_LR}, 3 steps: "
-          f"losses {l_card} vs {l_cpu} (float64 {l_ref}); largest step-1 |g| "
+    print(f"[{card}] {path}, card vs CPU float32 (TF32 off), {what}, lr {PARITY_LR}, "
+          f"3 steps: losses {l_card} vs {l_cpu} (float64 {l_ref}); largest step-1 |g| "
           f"{gmax:.3e}")
     ok = True
-    for what, pick in (("step-1 clipped gradients", step1),
+    for part, pick in (("step-1 clipped gradients", step1),
                        ("parameters after step 3", step3),
                        ("running statistics after step 3", stats)):
         d, floor = dist("card", "float64", pick), dist("cpu", "float64", pick)
         cc = dist("card", "cpu", pick)
         passed = d["max"] <= 2 * floor["max"] and d["l2"] <= 2 * floor["l2"]
         ok &= passed
-        print(f"[{card}] train path, {what}: card vs float64 max_abs_err="
+        print(f"[{card}] {path}, {part}: card vs float64 max_abs_err="
               f"{d['max']:.3e}, L2 {d['l2']:.3e} ({d['rel']:.3e} of float64's); tol "
               f"twice the CPU float32's distance from float64: max "
               f"{2 * floor['max']:.3e}, L2 {2 * floor['l2']:.3e}; card vs CPU max "
@@ -906,18 +912,45 @@ def _check_card_against_cpu(card: str, state: dict, images, labels):
     # AdamW moves an element by at most ~lr a step whatever its gradient
     p_max = dist("card", "float64", step3)["max"]
     if not ok or p_max > 2 * 3 * PARITY_LR:
-        fail(f"train path: the card's float32 steps are farther from float64 "
+        fail(f"{path}: the card's float32 steps are farther from float64 "
              f"than twice the CPU's (or a parameter by {p_max:.3e} > 2*3*lr)")
 
-    model, opt, gen = setup("cuda", torch.bfloat16)
-    bf16_loss, _ = S.cls_train_step(model, opt, images.cuda(), labels.cuda(), gen, 0.1)
-    rel = abs(bf16_loss.item() - l_card[0]) / abs(l_card[0])
-    print(f"[{card}] train path, bf16 vs float32 step loss on the same weights "
-          f"and batch: {bf16_loss.item():.5f} vs {l_card[0]:.5f}, rel {rel:.4f} "
-          f"tol 0.05")
+    model, opt = build("cuda", torch.bfloat16)
+    bf16_loss = step(model, opt, images.cuda(), targets.cuda(),
+                     torch.Generator(device="cuda").manual_seed(SEED)).item()
+    rel = abs(bf16_loss - l_card[0]) / abs(l_card[0])
+    print(f"[{card}] {path}, bf16 vs float32 step loss on the same weights and "
+          f"batch: {bf16_loss:.5f} vs {l_card[0]:.5f}, rel {rel:.4f} tol 0.05")
     if not rel <= 0.05:
-        fail(f"train path: bf16 loss {bf16_loss.item()} is not within 5% of "
-             f"float32's {l_card[0]}")
+        fail(f"{path}: bf16 loss {bf16_loss} is not within 5% of float32's {l_card[0]}")
+
+
+def _cls_parity(card: str, state: dict, images, labels):
+    """Gates 4 and 5 of the train path: ResNet18 with dropout 0, every
+    parameter trainable (stage 2), label-smoothed CE."""
+    from medseg_tpu_torch.models.resnet import resnet18
+    from medseg_tpu_torch.train import steps as S
+    from medseg_tpu_torch.train.freeze import all_trainable, set_trainable
+
+    def build(device, dtype):
+        model = resnet18(dtype=dtype, device=device, dropout=0.0)
+        model.load_state_dict(state, strict=True)
+        if dtype == torch.float64:
+            model.double()
+            # the head casts its input to float32; here it takes float64
+            model.fc.register_forward_pre_hook(
+                lambda _, args: (args[0].to(dtype),) + args[1:])
+        return model, S.build_optimizer(PARITY_LR, 5e-4, 1.0,
+                                        set_trainable(model.train(), all_trainable))
+
+    def loss64(model, x, y, k=3):
+        target = (y[:, None] == torch.arange(k)).to(x.dtype) * 0.9 + 0.1 / k
+        return -(target * torch.log_softmax(model(x), -1)).sum(-1).mean()
+
+    _check_card_against_cpu(
+        card, "train path", f"ResNet18 B={PARITY_BATCH} at {SIZE}px, stage-2 optimizer",
+        build, lambda m, o, x, y, g: S.cls_train_step(m, o, x, y, g, 0.1)[0], loss64,
+        images, labels)
 
 
 def _batch_norm_reading(card: str, model, x, gen) -> None:
@@ -983,6 +1016,92 @@ def _batch_norm_reading(card: str, model, x, gen) -> None:
               f"{[round(t, 4) for t in times]}); forward max_abs_err vs the port's "
               f"{err:.3e}; costliest operations (ms per call): "
               f"{[(round(t, 4), n) for t, n in top]}")
+
+
+def _steady_steps(card: str, path: str, what: str, batch: int, loader, step, prep,
+                  loss_fn, opt, gen, lost):
+    """A train path's step at full width, from the trained model:
+    step(images, targets) -> loss (prep and the optimizer inside),
+    prep(gen, images, targets) -> (x, y), loss_fn(x, y) -> the loss of a
+    training-mode forward.  Warms up, reads the step rate by host clock
+    over RATE_STEPS steps, runs gate 6 (SYNC_STEPS steps under
+    set_sync_debug_mode("error")) and the device time split, a reading:
+    each part prints its sessions and its costliest device operations, and
+    `lost(reps)` records may go missing a session without failing it.
+    Returns (gate 6's fault or None, to raise at the end of the path, so
+    after the measurements; the split's prepared batch; the step's device
+    ms; its host-clock seconds)."""
+
+    def epochs():
+        while True:
+            yield from loader
+
+    next_batch = functools.partial(next, epochs())
+    for _ in range(3):  # warm-up: the optimizer's state, cuDNN plans
+        step(*next_batch())
+    torch.cuda.synchronize()
+    loss_acc = torch.zeros((), device="cuda")
+    t0 = time.perf_counter()
+    for _ in range(RATE_STEPS):
+        loss_acc += step(*next_batch())
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / RATE_STEPS
+    if not math.isfinite(loss_acc.item()):
+        fail(f"{path}: a step's loss is not finite")
+    print(f"[{card}] {path}, {what}: {batch / step_s:.1f} img/s ({step_s * 1e3:.3f} "
+          f"ms/step, host clock over {RATE_STEPS} steps from the device-cached "
+          f"loader, ending in a synchronize)")
+
+    sync_fault = None
+    for _ in range(SYNC_STEPS):
+        imgs, targets = next_batch()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss_acc += step(imgs, targets)
+        except RuntimeError:
+            sync_fault = traceback.format_exc()
+            break
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    if sync_fault is None:
+        print(f"[{card}] {path}: {SYNC_STEPS} steps (augment -> forward -> backward "
+              f"-> clip -> AdamW, loss accumulated on the card) ran under "
+              f"set_sync_debug_mode('error') without a synchronization")
+
+    imgs, targets = next_batch()
+    xb, yb = prep(gen, imgs, targets)
+
+    def forward_backward():
+        opt.zero_grad(set_to_none=True)
+        loss_fn(xb, yb).backward()
+
+    parts = {"whole step": (lambda: step(imgs, targets), 10),
+             "augment": (lambda: prep(gen, imgs, targets), 20),
+             "forward with loss": (lambda: loss_fn(xb, yb), 10),
+             "forward + backward": (forward_backward, 10),
+             "clip + AdamW": (opt.step, 20)}
+    split = {}
+    for part, (fn, reps) in parts.items():
+        times, top = session_times(fn, reps, what=part, lost=lost(reps))
+        split[part] = float(np.median(times))
+        print(f"[{card}] {path}, device time of {part}: {split[part]:.4f} ms "
+              f"(median of sessions {[round(t, 4) for t in times]}); costliest "
+              f"operations (ms per call): {[(round(t, 4), n) for t, n in top]}")
+    ops = [sum(e.count for e in events)
+           for events in _sessions(lambda: step(imgs, targets), 1)]
+    whole_ms, fb_ms = split["whole step"], split["forward + backward"]
+    print(f"[{card}] {path}, {what}: device time {whole_ms:.4f} ms against "
+          f"{step_s * 1e3:.3f} ms of host clock, so the card idles "
+          f"{1.0 - whole_ms / (step_s * 1e3):.1%} of the step")
+    print(f"[{card}] {path}, device time split (profiler, median of "
+          f"{PROFILE_SESSIONS} sessions): augment {split['augment']:.4f} ms, "
+          f"forward with loss {split['forward with loss']:.4f} ms, backward "
+          f"{fb_ms - split['forward with loss']:.4f} ms (forward + backward "
+          f"{fb_ms:.4f}), clip + AdamW {split['clip + AdamW']:.4f} ms; sum "
+          f"{split['augment'] + fb_ms + split['clip + AdamW']:.4f} vs the whole "
+          f"step {whole_ms:.4f}; device operations per step {ops} "
+          f"({PROFILE_SESSIONS} sessions of one step)")
+    return sync_fault, xb, whole_ms, step_s
 
 
 def run_train_path(card: str):
@@ -1067,98 +1186,407 @@ def run_train_path(card: str):
     def prep(g, imgs, targets):
         return augment_batch(g, imgs, out_dtype=torch.bfloat16)[0], targets
 
-    def step(imgs, targets):
-        return S.cls_train_step(model, opt, imgs, targets, gen, 0.1, prep)
-
-    def epochs():
-        while True:
-            yield from train_loader
-
-    batches = epochs()
-    next_batch = functools.partial(next, batches)
-    for _ in range(3):  # warm-up: the optimizer's state, cuDNN plans
-        step(*next_batch())
-    torch.cuda.synchronize()
-    loss_acc = torch.zeros((), device="cuda")
-    t0 = time.perf_counter()
-    for _ in range(RATE_STEPS):
-        loss, _ = step(*next_batch())
-        loss_acc += loss
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / RATE_STEPS
-    if not math.isfinite(loss_acc.item()):
-        fail("train path: a stage-2 step's loss is not finite")
-
-    print(f"[{card}] train path, stage-2 step ResNet18 bf16 B={BATCH} at {SIZE}px: "
-          f"{BATCH / step_s:.1f} img/s ({step_s * 1e3:.3f} ms/step, host clock over "
-          f"{RATE_STEPS} steps from the device-cached loader, ending in a "
-          f"synchronize)")
-
-    # gate 6; like gates 4 and 5 its failure is raised at the end of the
-    # path, after the measurements
-    sync_fault = None
-    corr_acc = torch.zeros((), dtype=torch.int64, device="cuda")
-    for _ in range(SYNC_STEPS):
-        imgs, targets = next_batch()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            loss, corr = step(imgs, targets)
-            loss_acc += loss
-            corr_acc += corr
-        except RuntimeError:
-            sync_fault = traceback.format_exc()
-            break
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    if sync_fault is None:
-        print(f"[{card}] train path: {SYNC_STEPS} stage-2 steps (augment -> forward "
-              f"-> backward -> clip -> AdamW, loss and correct accumulated on the "
-              f"card) ran under set_sync_debug_mode('error') without a "
-              f"synchronization; correct {int(corr_acc)} of {SYNC_STEPS * BATCH}")
-
-    imgs, targets = next_batch()
-    xb = prep(gen, imgs, targets)[0]
-
-    def forward_loss():
-        return L.cross_entropy(model(xb, generator=gen), targets, 0.1)
-
-    def forward_backward():
-        opt.zero_grad(set_to_none=True)
-        forward_loss().backward()
-
-    # The split is a reading, not a gate: each part prints its sessions and
-    # its costliest device operations, and a spread fails nothing
-    parts = {"whole step": (lambda: step(imgs, targets), 10),
-             "augment": (lambda: prep(gen, imgs, targets), 20),
-             "forward with loss": (forward_loss, 10),
-             "forward + backward": (forward_backward, 10),
-             "clip + AdamW": (opt.step, 20)}
-    split = {}
-    for part, (fn, reps) in parts.items():
-        times, top = session_times(fn, reps, what=part, lost=1)
-        split[part] = float(np.median(times))
-        print(f"[{card}] train path, device time of {part}: {split[part]:.4f} ms "
-              f"(median of sessions {[round(t, 4) for t in times]}); costliest "
-              f"operations (ms per call): {[(round(t, 4), n) for t, n in top]}")
-    ops = [sum(e.count for e in events)
-           for events in _sessions(lambda: step(imgs, targets), 1)]
-    whole_ms, fb_ms = split["whole step"], split["forward + backward"]
-    idle = 1.0 - whole_ms / (step_s * 1e3)
-    print(f"[{card}] train path, stage-2 step: device time {whole_ms:.4f} ms against "
-          f"{step_s * 1e3:.3f} ms of host clock, so the card idles {idle:.1%} of "
-          f"the step")
-    print(f"[{card}] train path, device time split (profiler, median of "
-          f"{PROFILE_SESSIONS} sessions): augment {split['augment']:.4f} ms, "
-          f"forward with loss {split['forward with loss']:.4f} ms, backward "
-          f"{fb_ms - split['forward with loss']:.4f} ms (forward + backward "
-          f"{fb_ms:.4f}), clip + AdamW {split['clip + AdamW']:.4f} ms; sum "
-          f"{split['augment'] + fb_ms + split['clip + AdamW']:.4f} vs the whole "
-          f"step {whole_ms:.4f}; device operations per step {ops} "
-          f"({PROFILE_SESSIONS} sessions of one step)")
+    sync_fault, xb, _, _ = _steady_steps(
+        card, "train path", f"stage-2 step ResNet18 bf16 B={BATCH} at {SIZE}px", BATCH,
+        train_loader, lambda imgs, t: S.cls_train_step(model, opt, imgs, t, gen, 0.1, prep)[0],
+        prep, lambda x, y: L.cross_entropy(model(x, generator=gen), y, 0.1), opt, gen,
+        lost=lambda reps: 1)
     _batch_norm_reading(card, model, xb, gen)
-    _check_card_against_cpu(card, *parity)
+    _cls_parity(card, *parity)
     if sync_fault is not None:
         fail(f"train path: a train step synchronized with the host:\n{sync_fault}")
+    return launches
+
+
+UNET_ENCODER = tuple(f"encoder{i}" for i in range(1, 6))
+
+
+def _is_encoder(name: str) -> bool:
+    return name.split(".", 1)[0] in UNET_ENCODER
+
+
+def _check_frozen_encoder(card: str, model, init: dict) -> None:
+    """The frozen-encoder gate: every encoder parameter bit for bit its
+    initial value, every encoder running statistic moved (its BatchNorms
+    ran in training mode), every decoder weight moved."""
+    got = model.state_dict()
+    params = [n for n, _ in model.named_parameters()]
+    encoder = [n for n in params if _is_encoder(n)]
+    stats = [k for k in got if _is_encoder(k) and k.endswith(("running_mean", "running_var"))]
+    weights = [n for n in params if not _is_encoder(n) and n.endswith("weight")]
+    biases = [n for n in params if not _is_encoder(n) and n.endswith("bias")]
+    moved = [n for n in encoder if not torch.equal(got[n], init[n])]
+    still = [k for k in stats + weights if torch.equal(got[k], init[k])]
+    if moved or still:
+        fail(f"seg path: encoder parameters that moved {moved}; running statistics "
+             f"or decoder weights that did not {still}")
+    n_bias = sum(not torch.equal(got[n], init[n]) for n in biases)
+    print(f"[{card}] seg path: the {len(encoder)} encoder parameters are bit for bit "
+          f"their initial values; all {len(stats)} encoder running statistics and "
+          f"all {len(weights)} decoder weights moved ({n_bias} of {len(biases)} "
+          f"decoder biases)")
+
+
+def _seg_parity(card: str, state: dict, images, masks):
+    """Gates 4 and 5 of the seg path: ResNetUnet with the encoder frozen,
+    BCE with logits."""
+    import torch.nn.functional as F
+
+    from medseg_tpu_torch.models.resnet_unet import resnet_unet
+    from medseg_tpu_torch.train import steps as S
+    from medseg_tpu_torch.train.freeze import finetune_filter, set_trainable
+
+    def build(device, dtype):
+        model = resnet_unet(dtype=dtype, device=device)
+        model.load_state_dict(state, strict=True)
+        if dtype == torch.float64:
+            model.double()
+        return model, S.build_optimizer(
+            PARITY_LR, 5e-4, 1.0, set_trainable(model.train(), finetune_filter("ResNetUnet")))
+
+    def loss64(model, x, y):
+        out = model(x)
+        t = y.to(out.dtype)
+        return -(t * F.logsigmoid(out) + (1.0 - t) * F.logsigmoid(-out)).mean()
+
+    _check_card_against_cpu(
+        card, "seg path", f"ResNetUnet B={SEG_PARITY_BATCH} at {SIZE}px, encoder frozen",
+        build, S.seg_train_step, loss64, images, masks)
+
+
+def _mask_gate(card: str, ds) -> None:
+    """The card's fused branch of augment_batch (the mask as B1's 4th plane,
+    warped bilinearly and thresholded) against the CPU branch (true
+    nearest) on one synthetic_seg batch, both fed the same AugmentParams:
+    the images within B1's float32 tolerance, and every mask pixel where
+    the two differ on a region edge of the CPU mask (a 4-neighbour holds
+    the other value), ops/augment.py's documented difference."""
+    from medseg_tpu_torch.core.config import AugmentConfig
+    from medseg_tpu_torch.ops import augment as A
+
+    images = torch.from_numpy(ds.images[:SEG_BATCH])
+    masks = torch.from_numpy(ds.masks[:SEG_BATCH])
+    params = A.sample_augment_params(torch.Generator().manual_seed(SEED + 5), SEG_BATCH,
+                                     AugmentConfig())
+    sampler = A.sample_augment_params
+    A.sample_augment_params = lambda gen, b, cfg: params
+    try:
+        x_card, m_card = A.augment_batch(torch.Generator(device="cuda"), images.cuda(),
+                                         masks.cuda())
+        x_cpu, m_cpu = A.augment_batch(torch.Generator(), images, masks)
+    finally:
+        A.sample_augment_params = sampler
+    err = (x_card.cpu() - x_cpu).abs().max().item()
+    card_m, cpu_m = m_card.cpu()[..., 0] > 0.5, m_cpu[..., 0] > 0.5
+    edge = torch.zeros_like(cpu_m)
+    for dim in (1, 2):
+        step = cpu_m.narrow(dim, 1, SIZE - 1) != cpu_m.narrow(dim, 0, SIZE - 1)
+        edge.narrow(dim, 1, SIZE - 1).logical_or_(step)
+        edge.narrow(dim, 0, SIZE - 1).logical_or_(step)
+    differ = card_m != cpu_m
+    inner = int((differ & ~edge).sum())
+    print(f"[{card}] seg path, mask gate (B={SEG_BATCH} at {SIZE}px, one injected "
+          f"AugmentParams draw, {int(params.flip.sum())} flips, {int((params.scale != 1).sum())} "
+          f"warps): images card vs CPU branch max_abs_err={err:.3e} tol 1e-3; masks "
+          f"differ on {int(differ.sum())} of {differ.numel()} pixels "
+          f"({float(differ.float().mean()):.4%}; {int(edge.sum())} pixels lie on a "
+          f"region edge of the CPU mask), {inner} of them off an edge (tol 0)")
+    if not err <= 1e-3 or inner:
+        fail(f"seg path: the card's fused augmentation differs from the CPU branch "
+             f"(images {err}, {inner} mask pixels off a region edge)")
+
+
+def _family_reading(card: str, path: str, model, x, step_ms: float, families: dict):
+    """A reading that gates nothing: each module family's device time in a
+    train step at the step's shapes, replayed from inputs captured in one
+    train-mode forward: forward and backward where the step runs one (a
+    trainable parameter or an input that carries a gradient), forward only
+    elsewhere (the frozen encoder's BatchNorms)."""
+    captured = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, args: captured.append((m, args[0].detach(), args[0].requires_grad)))
+        for m in model.modules() if isinstance(m, tuple(families.values()))]
+    model(x)
+    for h in hooks:
+        h.remove()
+    for label, kind in families.items():
+        cases = []
+        for m, xi, needs_grad in (c for c in captured if isinstance(c[0], kind)):
+            wrt = ([xi.requires_grad_()] if needs_grad else []) + [
+                p for p in m.parameters() if p.requires_grad]
+            with torch.no_grad():
+                gy = torch.randn_like(m(xi)) if wrt else None
+            cases.append((m, xi, wrt, gy))
+
+        def run(cases=cases):
+            for m, xi, wrt, gy in cases:
+                if wrt:
+                    torch.autograd.grad(m(xi), wrt, gy)
+                else:
+                    with torch.no_grad():
+                        m(xi)
+
+        times, top = session_times(run, 5, what=label, lost=5)
+        ms = float(np.median(times))
+        n_bwd = sum(c[2] != [] for c in cases)
+        print(f"[{card}] {path}, {label}: {len(cases)} modules ({n_bwd} with a backward), "
+              f"{ms:.4f} ms of device time per step ({ms / step_ms:.1%} of the device "
+              f"step; median of sessions {[round(t, 4) for t in times]}); costliest "
+              f"operations (ms per call): {[(round(t, 4), n) for t, n in top]}")
+
+
+def conv_flops(model, x) -> dict:
+    """The operations of the convs and transposed convs in one forward of
+    model(x), from their shapes (2 per multiply-add), split into the
+    encoder's and the rest."""
+    flops = {"encoder": 0, "decoder": 0}
+
+    def count(name):
+        def hook(m, args, out):
+            taps = m.kernel_size[0] * m.kernel_size[1]
+            if isinstance(m, torch.nn.ConvTranspose2d):
+                macs = args[0].numel() * m.out_channels * taps
+            else:
+                macs = out.numel() * m.in_channels // m.groups * taps
+            flops["encoder" if _is_encoder(name) else "decoder"] += 2 * macs
+        return hook
+
+    hooks = [m.register_forward_hook(count(n)) for n, m in model.named_modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
+    with torch.no_grad():
+        model(x)
+    for h in hooks:
+        h.remove()
+    return flops
+
+
+def _warp_c4_reading(card: str) -> None:
+    """B1's segmentation form (C=4: the mask as a 4th plane with mean 0, std
+    1; float32 out) at the seg step's B=8 and the seg_e2e reading's B=128:
+    against its plain version (tolerance 0: same float32 operation order,
+    no FMA), and its device time beside the plain version's and its bound."""
+    from medseg_tpu_torch.core.config import AugmentConfig, IMAGENET_MEAN, IMAGENET_STD
+    from medseg_tpu_torch.ops.augment import _combined_matrices, sample_augment_params
+    from medseg_tpu_torch.ops.kernels.warp_kernel import warp_affine_kernel
+    from medseg_tpu_torch.ops.warp_fast import warp_affine_fast
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    for b, reps in ((SEG_BATCH, 50), (BATCH, 20)):
+        imgs = torch.randint(0, 256, (b, SIZE, SIZE, 4), generator=gen, device="cuda",
+                             dtype=torch.uint8)
+        p = sample_augment_params(gen, b, AugmentConfig())
+        mats = _combined_matrices(p, SIZE, SIZE)
+        kw = dict(alpha=p.alpha, beta=p.beta,
+                  mean=tuple(m * 255.0 for m in IMAGENET_MEAN) + (0.0,),
+                  std=tuple(s * 255.0 for s in IMAGENET_STD) + (1.0,))
+        err = (warp_affine_kernel(imgs, mats, **kw)
+               - warp_affine_fast(imgs, mats, **kw)).abs().max().item()
+        if err != 0.0:
+            fail(f"warp kernel C=4 f32 B={b} disagrees with its plain version: {err}")
+        ms = device_ms(lambda: warp_affine_kernel(imgs, mats, **kw), reps,
+                       "warp_affine_kernel<")
+        plain_ms = device_ms(lambda: warp_affine_fast(imgs, mats, **kw), 5)
+        b_ms, b_by = warp_bound_ms(b, SIZE, SIZE, 4, 4)
+        print(f"[{card}] seg path, warp kernel B={b} {SIZE}x{SIZE}x4 u8->f32 with "
+              f"epilogue (mask plane mean 0 std 1): max_abs_err={err} tol 0; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"{b_ms / ms:.0%} of it")
+
+
+def _seg_e2e_reading(card: str, state: dict) -> None:
+    """A reading that gates nothing but its launch count and output: the
+    JAX bench's seg_e2e program (4-plane augment_batch -> ResNetUnet bf16
+    -> sigmoid > 0.5) at B=128 over SEG_E2E_BATCHES batches of the
+    device-cached loader, with the seg path's trained weights, by host
+    clock and by device time."""
+    from medseg_tpu_torch.data.loader import BatchLoader
+    from medseg_tpu_torch.data.synthetic import synthetic_seg
+    from medseg_tpu_torch.models.resnet_unet import resnet_unet
+    from medseg_tpu_torch.ops.augment import augment_batch
+
+    ds = synthetic_seg(n=BATCH * SEG_E2E_BATCHES, img_size=SIZE, seed=SEED + 4)
+    loader = BatchLoader(ds, BATCH, shuffle=True, seed=SEED, drop_last=True,
+                         device_cache=True)
+    model = resnet_unet(dtype=torch.bfloat16)
+    model.load_state_dict(state, strict=True)
+    model.eval()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def step(images, masks):
+        x, m = augment_batch(gen, images, masks, out_dtype=torch.bfloat16)
+        return torch.sigmoid(model(x)) > 0.5, m
+
+    with torch.inference_mode():
+        images, masks = next(iter(loader))  # warm-up: cuDNN plans, allocator
+        step(images, masks)
+        torch.cuda.synchronize()
+        reset_counts()
+        preds = []
+        t0 = time.perf_counter()
+        for images, masks in loader:
+            preds.append(step(images, masks)[0])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        read_counts("seg_e2e reading", {"warp_affine": len(loader)})
+        x, _ = augment_batch(gen, images, masks, out_dtype=torch.bfloat16)
+        logits = model(x)
+        if (preds[-1].shape != (BATCH, SIZE, SIZE, 1) or logits.dtype != torch.float32
+                or not torch.isfinite(logits).all()):
+            fail(f"seg_e2e: bad output {tuple(preds[-1].shape)} {logits.dtype}")
+        dev_ms = device_ms(lambda: step(images, masks), 3)
+        flops = sum(conv_flops(model, x).values())
+    host_ms = wall / len(loader) * 1e3
+    rate = flops / dev_ms / 1e9
+    print(f"[{card}] seg_e2e reading, 4-plane augment_batch + ResNetUnet bf16 + "
+          f"sigmoid > 0.5, B={BATCH} at {SIZE}px, {len(loader)} batches: "
+          f"{BATCH / host_ms * 1e3:.1f} img/s ({host_ms:.3f} ms/batch, host clock "
+          f"ending in a synchronize); device time {dev_ms:.4f} ms/batch, so the card "
+          f"idles {1 - dev_ms / host_ms:.1%}; the convs' {flops / 1e12:.3f} TFLOP a "
+          f"batch at {rate:.1f} TFLOP/s, {rate * 1e12 / BF16_FLOPS_PER_S:.1%} of the "
+          f"bf16 peak; foreground share {float(torch.cat(preds).float().mean()):.4f}")
+
+
+def run_seg_path(card: str):
+    """`medseg train ResNetUnet` at full width (ResNet50 encoder, five
+    ConvTranspose decoder stages), bf16, 256px, B=8: 3 epochs and a resume,
+    the best checkpoint through the seg eval harness, then the gates and
+    readings of run_train_path for the seg step; returns the launches of
+    the 3-epoch run."""
+    from medseg_tpu_torch.core.config import AugmentConfig, EvalConfig, TrainConfig
+    from medseg_tpu_torch.data.loader import BatchLoader
+    from medseg_tpu_torch.data.synthetic import synthetic_seg
+    from medseg_tpu_torch.eval.csv_io import save_results_to_csv
+    from medseg_tpu_torch.eval.harness import (load_model_bundle, print_summary,
+                                               test_all_models)
+    from medseg_tpu_torch.models.resnet_unet import resnet_unet
+    from medseg_tpu_torch.nn.blocks import BatchNorm2d, ConvTranspose2d
+    from medseg_tpu_torch.ops.augment import augment_batch
+    from medseg_tpu_torch.train import losses as L
+    from medseg_tpu_torch.train import steps as S
+    from medseg_tpu_torch.train import train_model
+    from medseg_tpu_torch.train import trainer as T
+    from medseg_tpu_torch.train.freeze import finetune_filter, set_trainable
+
+    dev = torch.device("cuda")
+    ds = synthetic_seg(n=SEG_TRAIN + SEG_VAL, img_size=SIZE, seed=SEED)
+    val_idx = np.arange(SEG_TRAIN, SEG_TRAIN + SEG_VAL)
+    train_loader = BatchLoader(ds, SEG_BATCH, shuffle=True, seed=SEED,
+                               indices=np.arange(SEG_TRAIN), device_cache=True)
+    val_loader = BatchLoader(ds, SEG_BATCH, shuffle=False, indices=val_idx,
+                             device_cache=True)
+    n_steps, n_val = len(train_loader), len(val_loader)
+    # the trainer's initial weights, drawn again from its generator for SEED
+    init = resnet_unet(dtype=torch.bfloat16)
+    T.init_weights(init, T._generator(dev, SEED, T._INIT))
+    init = {k: v.clone() for k, v in init.state_dict().items()}
+    (HERE / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        # lr 1e-4: the recipe's 1e-6 moves the decoder little in 48 steps
+        cfg = dict(compute_dtype="bfloat16", save_root=tmp, lr=1e-4)
+        logs = []
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = train_model("ResNetUnet", train_loader, val_loader,
+                          TrainConfig(epochs=SEG_EPOCHS, **cfg), AugmentConfig(),
+                          seed=SEED, save=True, log=logs.append)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts("seg path", {"warp_affine": SEG_EPOCHS * n_steps,
+                                            "fused_photometric": SEG_EPOCHS * n_val})
+        for line in logs:
+            print(f"  {line.strip()}")
+        rows = _epoch_lines(logs, "seg path", SEG_EPOCH_LINE)
+        if ([r[0] for r in rows] != list(range(1, SEG_EPOCHS + 1))
+                or not logs[0].startswith("Training Segmentation model")):
+            fail(f"seg path: expected the segmentation line and epochs 1-{SEG_EPOCHS}: {logs}")
+        _check_frozen_encoder(card, res.model, init)
+        logs2 = []
+        train_model("ResNetUnet", train_loader, val_loader,
+                    TrainConfig(epochs=SEG_EPOCHS + 1, **cfg), AugmentConfig(),
+                    seed=SEED, save=True, resume=True, log=logs2.append)
+        rows2 = _epoch_lines(logs2, "seg path resume", SEG_EPOCH_LINE)
+        if ([r[0] for r in rows2] != [SEG_EPOCHS + 1]
+                or f"Resumed ResNetUnet from epoch {SEG_EPOCHS}" not in "\n".join(logs2)):
+            fail(f"seg path: the resume did not run epoch {SEG_EPOCHS + 1} alone: {logs2}")
+        print("\n".join(f"  {line.strip()}" for line in logs2[:3]))
+
+        # the best checkpoint through `medseg eval`'s segmentation branch
+        state = load_model_bundle("ResNetUnet", tmp, seg=True)
+        if state is None:
+            fail(f"seg path: no best checkpoint was written: {logs}")
+        resnet_unet().load_state_dict(state, strict=True)
+        eval_loader = BatchLoader(ds, EVAL_BATCH, shuffle=False, indices=val_idx)
+        elogs = []
+        torch.cuda.synchronize()
+        reset_counts()
+        results = test_all_models(None, eval_loader, EvalConfig(weights_root=tmp),
+                                  log=elogs.append)
+        torch.cuda.synchronize()
+        read_counts("seg eval", {"fused_photometric": len(eval_loader)})
+        skipped = [m for m in ("AttentionUNet", "R2Unet", "R2AttUnet", "CLIPSeg")
+                   if f"\n[WARNING] Weights not found for {m}" in elogs]
+        if list(results) != ["ResNetUnet"] or len(skipped) != 4:
+            fail(f"seg eval: results for {list(results)}, skipped {skipped}; log {elogs}")
+        res_eval = results["ResNetUnet"]
+        if not all(0.0 <= v <= 100.0 for v in res_eval.values()):
+            fail(f"seg eval: metrics out of range: {res_eval}")
+        print_summary(results)
+        seg_csv = Path(tmp) / "results" / "segmentation_test_results.csv"
+        save_results_to_csv(results, str(Path(tmp) / "results" / "classification.csv"),
+                            str(seg_csv), log=lambda *_: None)
+        with open(seg_csv, newline="") as f:
+            csv_rows = list(csv.DictReader(f))
+        if (len(csv_rows) != 1 or csv_rows[0].pop("Model") != "ResNetUnet"
+                or {k: float(v) for k, v in csv_rows[0].items()} != res_eval):
+            fail(f"seg eval: the CSV reads back as {csv_rows}, not {res_eval}")
+    print(f"[{card}] seg path, ResNetUnet bf16 B={SEG_BATCH} at {SIZE}px, {SEG_EPOCHS} "
+          f"epochs of {n_steps} steps + {n_val} validation batches (seed {SEED}): "
+          f"{wall:.3f} s (host clock, checkpoints and the first steps' cuDNN plans "
+          f"included); the best checkpoint loads strictly and the seg harness, "
+          f"{len(eval_loader)} batches of {EVAL_BATCH} with one photometric launch "
+          f"each, gives IoU {res_eval['iou']:.2f}%, Dice {res_eval['dice']:.2f}%; the "
+          f"CSV reads back to the metrics")
+
+    trained = {k: v.cpu() for k, v in res.model.state_dict().items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    images, masks = next(iter(val_loader))
+    x, m = augment_batch(gen, images[:SEG_PARITY_BATCH].contiguous(),
+                         masks[:SEG_PARITY_BATCH].contiguous())
+    parity = (trained, x.cpu(), m.cpu())
+
+    # the seg step at full width: rate, synchronization, device time
+    model = res.model.train()
+    opt = S.build_optimizer(1e-6, 5e-4, 1.0, set_trainable(model, finetune_filter("ResNetUnet")))
+
+    def prep(g, imgs, targets):
+        return augment_batch(g, imgs, targets, out_dtype=torch.bfloat16)
+
+    # a session of seg steps (~1060 device operations each) may lose a
+    # record per step: sessions of 10 steps counted 10589, 10590 and 10588
+    sync_fault, xb, whole_ms, step_s = _steady_steps(
+        card, "seg path", f"seg step ResNetUnet bf16 B={SEG_BATCH} at {SIZE}px", SEG_BATCH,
+        train_loader, lambda imgs, t: S.seg_train_step(model, opt, imgs, t, gen, prep),
+        prep, lambda x, y: L.bce_with_logits(model(x), y), opt, gen, lost=lambda reps: reps)
+    flops = conv_flops(model, xb)
+    # the forward's convs, and the decoder's twice more in the backward
+    # (gradients of inputs and of weights); the frozen encoder has none
+    step_flops = flops["encoder"] + 3 * flops["decoder"]
+    rate = step_flops / whole_ms / 1e9
+    print(f"[{card}] seg path, the convs' {step_flops / 1e12:.3f} TFLOP a step "
+          f"(forward: encoder {flops['encoder'] / 1e9:.1f}, decoder "
+          f"{flops['decoder'] / 1e9:.1f} GFLOP) at {rate:.1f} TFLOP/s of device time, "
+          f"{rate * 1e12 / BF16_FLOPS_PER_S:.1%} of the bf16 peak; the card idles "
+          f"{1.0 - whole_ms / (step_s * 1e3):.1%} of the host-clock step")
+    _family_reading(card, "seg path", model, xb, whole_ms,
+                    {"the 5 ConvTranspose layers": ConvTranspose2d,
+                     "the BatchNorms": BatchNorm2d})
+    _warp_c4_reading(card)
+    _seg_e2e_reading(card, trained)
+    _mask_gate(card, ds)
+    _seg_parity(card, *parity)
+    if sync_fault is not None:
+        fail(f"seg path: a seg step synchronized with the host:\n{sync_fault}")
     return launches
 
 
@@ -1199,6 +1627,7 @@ def main() -> int:
                 "fused_photometric": run_eval_path(card)["fused_photometric"],
                 "stem_conv_pool": run_stem_path(card)["stem_conv_pool"]}
     run_train_path(card)
+    run_seg_path(card)
 
     modules = {"warp_affine": warp_kernel, "fused_photometric": photometric,
                "stem_conv_pool": stem_kernel}

@@ -1,20 +1,25 @@
 """Evaluation harness: test every model on the held-out split.
 
-Counterpart of medseg_tpu/eval/harness.py (reference utils/tester.py:197-805)
-for classification: each batch is preprocessed on the card by one launch of
-the photometric kernel (ops/augment.preprocess_eval_batch), run through the
-model, and reduced to argmax predictions that stay on the device until the
-split ends; `classification_metrics` then computes the reference's formulas.
-Log lines, the summary tables and skip-on-missing-weights follow the JAX
+Counterpart of medseg_tpu/eval/harness.py (reference utils/tester.py:197-805):
+each batch is preprocessed on the card by one launch of the photometric
+kernel (ops/augment.preprocess_eval_batch; a segmentation mask's /255 is
+plain torch ops, as in the JAX package) and run through the model.  A
+classifier's argmax predictions, or a segmentation model's per-sample
+metric vectors (sigmoid, threshold, eval/metrics.py), stay on the device
+until the split ends and are read once; `classification_metrics` or
+`average_segmentation_metrics` then computes the reference's figures.  Log
+lines, the summary tables and skip-on-missing-weights follow the JAX
 package word for word.
 
 Differences from the JAX package:
 - weights come only from the reference's torch `.pt` state dicts
-  (`{weights_root}/classification_models/{name}_best_acc.pt`), which load
-  into the port's torchvision-named models with strict=True; orbax
-  checkpoints wait for the train step (ROADMAP A.5);
-- segmentation eval (ROADMAP A.8) and the mesh branch (ROADMAP A.14) raise
-  NotImplementedError;
+  (`{weights_root}/classification_models/{name}_best_acc.pt`,
+  `{weights_root}/segmentation_models/{name}_best_loss.pt`), which load
+  into the port's models, named as the reference's, with strict=True; the
+  port's trainer writes the same files (train/checkpoint.py);
+- models the port lacks raise NotImplementedError naming their ROADMAP
+  item (segmentation: PENDING_SEG_MODELS), as does the mesh branch
+  (ROADMAP A.14); CLIPSeg's branch comes with it (A.12);
 - no retry: `_evaluate_with_retry` guarded against a relay the card does not
   use, so test_all_models calls evaluate_model directly.
 """
@@ -36,6 +41,17 @@ from medseg_tpu_torch.ops.augment import preprocess_eval_batch
 CLS_MODELS = ("ResNet18", "ResNet50", "VGG16", "VGG19", "CLIP")
 SEG_MODELS = ("ResNetUnet", "AttentionUNet", "R2Unet", "R2AttUnet", "CLIPSeg")
 _SEG_NAMES = {m.lower() for m in SEG_MODELS}
+# segmentation models the port lacks yet, by the ROADMAP item that brings them
+PENDING_SEG_MODELS = {"attentionunet": "A.9", "r2unet": "A.9", "r2attunet": "A.9",
+                      "clipseg": "A.12"}
+
+
+def refuse_pending(name: str, what: str) -> None:
+    """NotImplementedError for a segmentation model the port lacks yet."""
+    item = PENDING_SEG_MODELS.get(name.lower())
+    if item is not None:
+        raise NotImplementedError(f"{what} {name} (segmentation) waits for its "
+                                  f"port (ROADMAP {item})")
 
 
 def load_model_bundle(name: str, weights_root: str,
@@ -84,6 +100,31 @@ def _log_classification(name: str, res: Dict, log: Callable[[str], None]):
         log(f"{CLASSES[i]:<12}" + "".join(f"{val:>12}" for val in row))
 
 
+def _eval_segmentation(model, loader: BatchLoader, device: torch.device,
+                       threshold: float):
+    acc: Dict[str, list] = {}
+    with torch.inference_mode():
+        for (images, masks), n_real in zip(loader, loader.real_counts()):
+            x, m = preprocess_eval_batch(images.to(device), masks.to(device))
+            probs = torch.sigmoid(model(x).to(torch.float32))
+            for k, v in M.segmentation_metrics_batched(probs, m, threshold).items():
+                acc.setdefault(k, []).append(v[:n_real])  # trim padding
+    # one fetch for the whole split (see _eval_classification)
+    per_sample = torch.stack([torch.cat(v) for v in acc.values()]).cpu().numpy()
+    return M.average_segmentation_metrics(dict(zip(acc, per_sample)))
+
+
+def _log_segmentation(name: str, res: Dict, log: Callable[[str], None]):
+    log(f"\n{name} Test Results:")
+    log("-" * 60)
+    log(f"IoU (Jaccard):     {res['iou']:.2f}%")
+    log(f"Dice Coefficient:  {res['dice']:.2f}%")
+    log(f"Pixel Accuracy:    {res['pixel_accuracy']:.2f}%")
+    log(f"Precision:         {res['precision']:.2f}%")
+    log(f"Recall:            {res['recall']:.2f}%")
+    log(f"F1 Score:          {res['f1']:.2f}%")
+
+
 def evaluate_model(name: str, loader: BatchLoader,
                    state_dict: Optional[Dict[str, torch.Tensor]] = None,
                    cfg: EvalConfig = EvalConfig(), *,
@@ -105,17 +146,19 @@ def evaluate_model(name: str, loader: BatchLoader,
     if mesh is not None:
         raise NotImplementedError("sharded eval waits for the data-parallel "
                                   "port (ROADMAP A.14)")
-    if seg:
-        raise NotImplementedError(f"segmentation eval ({name}) waits for the "
-                                  f"segmentation slice (ROADMAP A.8)")
+    refuse_pending(name, "evaluating")
     model = get_model(name)["factory"](device=device)
     model.load_state_dict(state_dict, strict=True)
     model.eval()
     log(f"\n{'=' * 60}")
-    log(f"Testing Classification Model: {name}")
+    log(f"Testing {'Segmentation' if seg else 'Classification'} Model: {name}")
     log(f"{'=' * 60}")
-    res = _eval_classification(model, loader, device)
-    _log_classification(name, res, log)
+    if seg:
+        res = _eval_segmentation(model, loader, device, cfg.threshold)
+        _log_segmentation(name, res, log)
+    else:
+        res = _eval_classification(model, loader, device)
+        _log_classification(name, res, log)
     log("=" * 60 + "\n")
     return res
 

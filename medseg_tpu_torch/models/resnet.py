@@ -20,7 +20,8 @@ and the deep stages fed through `skip_stem`.
 The factories initialize as torch does, from its global generator.
 `init_weights` re-initializes a model as flax does, from an explicit
 generator; the trainer starts from it, so a run from scratch trains the
-network the JAX package trains.
+network the JAX package trains.  models/resnet_unet.py builds ResNetUnet
+on the same trunk (`ResNetEncoder(..., unet_names=True)`).
 """
 
 from __future__ import annotations
@@ -102,13 +103,24 @@ class Bottleneck(nn.Module):
 
 
 class ResNetEncoder(nn.Module):
-    """The convolutional trunk: NHWC images -> NHWC final feature map."""
+    """The convolutional trunk: NHWC images -> NHWC final feature map.
+
+    Module names are torchvision's (`conv1`, `bn1`, `layer1`-`layer4`), or
+    with unet_names=True the reference ResNetUnet's (`encoder1.0`,
+    `encoder1.1` for the stem, `encoder2`-`encoder5` for the stages)."""
 
     def __init__(self, block: Type[nn.Module], stage_sizes: Sequence[int],
-                 dtype=torch.float32):
+                 dtype=torch.float32, unet_names: bool = False):
         super().__init__()
-        self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False, compute_dtype=dtype)
-        self.bn1 = BatchNorm2d(64, compute_dtype=dtype)
+        conv1 = Conv2d(3, 64, 7, 2, 3, bias=False, compute_dtype=dtype)
+        bn1 = BatchNorm2d(64, compute_dtype=dtype)
+        if unet_names:
+            self.encoder1 = nn.Sequential(conv1, bn1)
+            self.stem_names = ("encoder1.0", "encoder1.1")
+        else:
+            self.conv1, self.bn1 = conv1, bn1
+            self.stem_names = ("conv1", "bn1")
+        self.stage_names = []
         in_ch = 64
         for stage, (n_blocks, width) in enumerate(zip(stage_sizes,
                                                       (64, 128, 256, 512))):
@@ -119,21 +131,32 @@ class ResNetEncoder(nn.Module):
                 down = i == 0 and (stride != 1 or in_ch != out_ch)
                 blocks.append(block(in_ch, width, stride, down, dtype))
                 in_ch = out_ch
-            self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
+            name = f"encoder{stage + 2}" if unet_names else f"layer{stage + 1}"
+            self.add_module(name, nn.Sequential(*blocks))
+            self.stage_names.append(name)
         self.out_channels = in_ch
-        self.num_stages = len(stage_sizes)
 
-    def forward(self, x: torch.Tensor, skip_stem: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, skip_stem: bool = False,
+                taps: bool = False):
         """skip_stem: x is already the pooled stem output [B,H/4,W/4,64]
-        (from apply_with_stem_kernel); conv1/bn1 are left unused."""
+        (from apply_with_stem_kernel); conv1/bn1 are left unused.
+        taps: return the five activations ResNetUnet reads (medseg_tpu/
+        models/resnet.py:116-162), all NHWC: e1, the stem's output before
+        the max pool (64 channels at H/2), and the four stages' outputs."""
         if skip_stem:
+            if taps:
+                raise ValueError("skip_stem cannot provide the pre-pool tap e1")
             x = _nchw(x)
+            feats = []
         else:
-            x = F.relu(self.bn1(self.conv1(_nchw(x))))
-            x = _nchw(max_pool(_nhwc(x), 3, 2, padding=1))
-        for stage in range(self.num_stages):
-            x = getattr(self, f"layer{stage + 1}")(x)
-        return _nhwc(x)
+            conv, bn = map(self.get_submodule, self.stem_names)
+            e1 = F.relu(bn(conv(_nchw(x))))
+            x = _nchw(max_pool(_nhwc(e1), 3, 2, padding=1))
+            feats = [e1]
+        for name in self.stage_names:
+            x = getattr(self, name)(x)
+            feats.append(x)
+        return [_nhwc(f) for f in feats] if taps else _nhwc(x)
 
 
 class ResNetClassifier(ResNetEncoder):
@@ -161,15 +184,19 @@ _TRUNCATED_STD = 0.87962566103423978
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-initialize `model` in place as flax initializes the JAX package's
     ResNet, drawing from `generator` (on the model's device):
-    - Conv and Dense kernels: lecun_normal, a normal truncated to +-2 std
-      with variance 1/fan_in (fan_in = in_channels * kh * kw, or
-      in_features), as flax's variance_scaling computes it;
-    - Dense bias 0; BatchNorm scale 1, bias 0, running mean 0, var 1.
+    - Conv, ConvTranspose and Dense kernels: lecun_normal, a normal
+      truncated to +-2 std with variance 1/fan_in (fan_in = in_channels *
+      kh * kw, or in_features), as flax's variance_scaling computes it;
+    - Conv and Dense biases 0; BatchNorm scale 1, bias 0, running mean 0,
+      var 1.
     torch's default, kaiming_uniform_(a=sqrt(5)), has a sqrt(3)-smaller
     std.  The draws are not JAX's numbers; the distribution is."""
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
-            std = math.sqrt(1.0 / m.weight[0].numel()) / _TRUNCATED_STD
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            # a transposed conv's weight is [in, out, kh, kw]
+            fan_in = (m.weight[:, 0] if isinstance(m, nn.ConvTranspose2d)
+                      else m.weight[0]).numel()
+            std = math.sqrt(1.0 / fan_in) / _TRUNCATED_STD
             nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std,
                                   generator=generator)
             if m.bias is not None:

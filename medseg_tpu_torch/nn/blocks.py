@@ -32,6 +32,23 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x.to(cd), self.weight.to(cd), bias)
 
 
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """nn.ConvTranspose2d whose float32 parameters are cast to
+    `compute_dtype` for the product (cuDNN's transposed convolution, as
+    the JAX package leaves flax's ConvTranspose to XLA)."""
+
+    def __init__(self, *args, compute_dtype=torch.float32, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(cd)
+        return F.conv_transpose2d(x.to(cd), self.weight.to(cd), bias, self.stride,
+                                  self.padding, self.output_padding, self.groups,
+                                  self.dilation)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d that normalizes in float32 and returns `compute_dtype`,
     as flax's BatchNorm(dtype=...) does.
@@ -103,3 +120,17 @@ class ClassifierHead(nn.Sequential):
                                  "torch.Generator: pass generator=")
             x = dropout(x, p, generator)
         return self[1](x)
+
+
+class DoubleConv(nn.Sequential):
+    """Two Conv3x3 (with bias) + BN + ReLU, NCHW: the U-Nets' `basic_block`
+    (medseg_tpu/nn/blocks.py:134-146, reference AttentionUNet.py:4-13).  As
+    a Sequential its parameters sit at indices 0, 1, 3 and 4, the
+    reference's state-dict keys."""
+
+    def __init__(self, in_ch: int, features: int, dtype=torch.float32):
+        super().__init__(
+            Conv2d(in_ch, features, 3, 1, 1, compute_dtype=dtype),
+            BatchNorm2d(features, compute_dtype=dtype), nn.ReLU(),
+            Conv2d(features, features, 3, 1, 1, compute_dtype=dtype),
+            BatchNorm2d(features, compute_dtype=dtype), nn.ReLU())

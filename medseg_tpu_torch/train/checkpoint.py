@@ -1,9 +1,11 @@
 """Checkpoints as torch files: the best model, and a full resume state.
 
 Counterpart of medseg_tpu/train/checkpoint.py, which writes orbax trees:
-- `save_best` writes `{save_dir}/{name}_best_acc.pt`, the model's state
-  dict under the reference's key names (utils/helpers.py:394-400).  It is
-  the file both eval harnesses load (this package's eval/harness.py and the
+- `save_best` writes `{save_dir}/{name}_best_acc.pt` for a classifier and
+  `{save_dir}/{name}_best_loss.pt` for a segmentation model, the model's
+  state dict under the reference's key names (utils/helpers.py:394-400,
+  medseg_tpu/train/checkpoint.py:24-25).  It is the file both eval
+  harnesses load (this package's eval/harness.py and the
   JAX package's medseg_tpu/eval/harness.py:55-58), so a model trained here
   is evaluated by either;
 - `save_resume` / `load_resume` round-trip `{name}_resume.pt`: the model
@@ -29,8 +31,8 @@ def resume_path(save_dir: str, name: str) -> Path:
     return Path(save_dir) / f"{name}_resume.pt"
 
 
-def save_best(save_dir: str, name: str, model: nn.Module) -> Path:
-    path = Path(save_dir) / f"{name}_best_acc.pt"
+def save_best(save_dir: str, name: str, model: nn.Module, seg: bool = False) -> Path:
+    path = Path(save_dir) / f"{name}_{'best_loss' if seg else 'best_acc'}.pt"
     path.parent.mkdir(parents=True, exist_ok=True)
     torch.save(_cpu_state(model), path)
     return path

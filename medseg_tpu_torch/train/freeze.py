@@ -5,9 +5,9 @@ Counterpart of medseg_tpu/train/freeze.py.  The reference freezes with
 masks the optimizer.  The port does what the reference does: a frozen
 parameter gets requires_grad=False and stays out of the optimizer, so it
 gets no update, no weight decay and no share of the global-norm clip.
-Names are torchvision's (`fc.1.weight`, `layer1.0.conv1.weight`, ...).
-`finetune_filter` comes with the segmentation slice and the finetuners
-(ROADMAP A.8, A.13).
+Names are torchvision's (`fc.1.weight`, `layer1.0.conv1.weight`, ...), and
+the reference ResNetUnet's (`encoder1.0.weight`, `decoder5.up_sample.bias`,
+...).
 """
 
 from __future__ import annotations
@@ -42,3 +42,21 @@ def set_trainable(model: nn.Module, pred: NamePredicate) -> List[nn.Parameter]:
         if p.requires_grad:
             trainable.append(p)
     return trainable
+
+
+_UNET_ENCODER = frozenset(f"encoder{i}" for i in range(1, 6))
+
+
+def finetune_filter(model_name: str) -> NamePredicate:
+    """Which parameters train in the model's single-stage recipe
+    (medseg_tpu/train/freeze.py:56-68).  ResNetUnet keeps its encoder
+    frozen (reference ResnetUnet.py:30,45-46): the JAX package tests
+    path[0] == "encoder"; here the encoder is the top-level modules
+    encoder1-encoder5.  CLIP's and CLIPSeg's rules come with their
+    finetuners (ROADMAP A.13); every other model trains whole."""
+    name = model_name.lower()
+    if name == "resnetunet":
+        return lambda n: n.split(".", 1)[0] not in _UNET_ENCODER
+    if name in ("clip", "clipseg"):
+        raise ValueError(f"no finetune rule for {model_name} yet (ROADMAP A.13)")
+    return all_trainable

@@ -1,16 +1,23 @@
-"""Classification losses with the reference's semantics.
+"""Losses with the reference's semantics, in float32.
 
-Counterpart of medseg_tpu/train/losses.py:17-40: cross-entropy with torch
-CrossEntropyLoss's label smoothing (target = (1-eps)*onehot + eps/K,
-reference utils/helpers.py:244-246) in float32, and the pad-row mask of the
-validation loop.  The one-hot is a comparison with an arange on the logits'
-device, so nothing here waits for the card.  The segmentation losses
-(:43-111) come with the segmentation slice (ROADMAP A.8).
+Counterpart of medseg_tpu/train/losses.py:
+- cross-entropy with torch CrossEntropyLoss's label smoothing (target =
+  (1-eps)*onehot + eps/K, reference utils/helpers.py:244-246) and the
+  pad-row mask of the validation loop (:17-40);
+- binary cross-entropy with logits, mean over all elements, in the stable
+  form optax.sigmoid_binary_cross_entropy computes (:73), and its masked
+  form over the valid rows of a padded batch (:43);
+- the batch IoU of the training loop's validation: one IoU over the whole
+  batch, not a mean over samples (:93), and its masked form (:103).
+The one-hot is a comparison with an arange on the logits' device, so
+nothing here waits for the card.  Dice and the combined loss come with the
+CLIPSeg finetuner (ROADMAP A.13).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def per_sample_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -35,3 +42,48 @@ def valid_mask(batch: int, n_valid, device=None) -> torch.Tensor:
     """[B] float mask: 1.0 for the first n_valid rows, 0.0 for pad rows
     (the loader's pad_to_multiple repeats the last sample)."""
     return (torch.arange(batch, device=device) < n_valid).to(torch.float32)
+
+
+def _sigmoid_bce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Elementwise optax.sigmoid_binary_cross_entropy in float32:
+    -t*log_sigmoid(x) - (1-t)*log_sigmoid(-x)."""
+    logits = logits.to(torch.float32)
+    targets = targets.to(torch.float32)
+    return -(targets * F.logsigmoid(logits) + (1.0 - targets) * F.logsigmoid(-logits))
+
+
+def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    return _sigmoid_bce(logits, targets).mean()
+
+
+def _rows(valid: torch.Tensor, ndim: int) -> torch.Tensor:
+    """[B] valid mask broadcast over a tensor of `ndim` dimensions."""
+    return valid.reshape((-1,) + (1,) * (ndim - 1))
+
+
+def masked_bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
+                           valid: torch.Tensor) -> torch.Tensor:
+    """Mean BCE over the valid rows only: bce_with_logits(logits[:n],
+    targets[:n]) for valid = n ones and pad zeros."""
+    per_elem = _sigmoid_bce(logits, targets)
+    per_sample = per_elem[0].numel()
+    return ((per_elem * _rows(valid, per_elem.dim())).sum()
+            / torch.clamp(valid.sum() * per_sample, min=1.0))
+
+
+def batch_iou(probs: torch.Tensor, targets: torch.Tensor,
+              threshold: float = 0.5) -> torch.Tensor:
+    """One IoU over the whole batch (reference utils/helpers.py:223-227)."""
+    return masked_batch_iou(probs, targets, torch.ones(probs.shape[0], device=probs.device),
+                            threshold)
+
+
+def masked_batch_iou(probs: torch.Tensor, targets: torch.Tensor,
+                     valid: torch.Tensor, threshold: float = 0.5) -> torch.Tensor:
+    """batch_iou over the valid rows only (pad rows leave both sums)."""
+    v = _rows(valid, probs.dim())
+    p = (probs > threshold).to(torch.float32) * v
+    t = targets.to(torch.float32) * v
+    inter = (p * t).sum()
+    union = ((p + t) > 0).to(torch.float32).sum()
+    return inter / (union + 1e-7)

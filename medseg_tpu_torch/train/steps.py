@@ -1,14 +1,15 @@
-"""The optimizer stack and the classification train and eval steps.
+"""The optimizer stack and the train and eval steps.
 
-Counterpart of medseg_tpu/train/steps.py:32-56 (optimizer), :68-95 (train
-step) and :274-294 (eval step).  The optimizer holds only the trainable
-parameters (train/freeze.py); its step clips their gradients by global norm
-as optax's clip_by_global_norm does, then applies AdamW.  The learning rate
+Counterpart of medseg_tpu/train/steps.py:32-56 (optimizer), :68-95 and
+:111-141 (classification and segmentation train steps) and :274-313 (the
+eval steps).  The optimizer holds only the trainable parameters
+(train/freeze.py); its step clips their gradients by global norm as
+optax's clip_by_global_norm does, then applies AdamW.  The learning rate
 lives in the param groups and is set per epoch from the host.
 
 No step reads a value back to the host: the clip decides with
-`torch.where` on the card, and loss and correct count are returned as
-device tensors for the caller to accumulate.  In bf16 the parameters stay
+`torch.where` on the card, and losses, correct counts and IoUs are
+returned as device tensors for the caller to accumulate.  In bf16 the parameters stay
 float32 and the convs cast them per forward (nn/blocks.py), so gradients
 reach them through the cast, as with flax's `dtype`: no autocast, no loss
 scaling.
@@ -108,3 +109,35 @@ def cls_eval_step(model: nn.Module, images: torch.Tensor, labels: torch.Tensor,
     preds = out.argmax(-1)
     correct = ((preds == labels) & (valid > 0)).sum()
     return loss_sum, correct, preds
+
+
+def seg_train_step(model: nn.Module, optimizer: ClippedAdamW,
+                   images: torch.Tensor, masks: torch.Tensor,
+                   gen: torch.Generator, prep: Optional[Prep] = None) -> torch.Tensor:
+    """One step: prep (the augmentation with the mask, drawing from `gen`)
+    -> train-mode forward -> BCE with logits -> backward -> clip + AdamW.
+    The model is in training mode, so every BatchNorm, a frozen encoder's
+    too, normalizes with batch statistics and updates its running ones, as
+    flax's mutable batch_stats do whatever the optimizer's mask says.
+    Frozen parameters (requires_grad False) get no gradient and are not in
+    the optimizer.  Returns the loss as a device scalar."""
+    if prep is not None:
+        images, masks = prep(gen, images, masks)
+    loss = losses.bce_with_logits(model(images), masks)
+    optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    optimizer.step()
+    return loss.detach()
+
+
+@torch.no_grad()
+def seg_eval_step(model: nn.Module, images: torch.Tensor, masks: torch.Tensor,
+                  n_valid: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(loss_sum, batch IoU) over the first n_valid rows: the masked mean
+    BCE times max(n_valid, 1), and the masked batch IoU of sigmoid(logits)
+    at 0.5.  The model is in eval mode."""
+    out = model(images)
+    valid = losses.valid_mask(images.shape[0], n_valid, out.device)
+    loss = losses.masked_bce_with_logits(out, masks, valid)
+    iou = losses.masked_batch_iou(torch.sigmoid(out), masks, valid)
+    return loss * max(n_valid, 1), iou

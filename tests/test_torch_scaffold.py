@@ -83,8 +83,8 @@ def test_train_model_raises_without_a_card(monkeypatch, tmp_path):
     cfg = TrainConfig(epochs=1, save_root=str(tmp_path))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_model("ResNet18", loader, loader, cfg, log=print)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        train_model("ResNetUnet", loader, loader, cfg, log=print, device="cpu")
+    with pytest.raises(NotImplementedError, match="A.9"):
+        train_model("AttentionUNet", loader, loader, cfg, log=print, device="cpu")
     assert not tmp_path.exists() or not any(tmp_path.iterdir())
 
 
