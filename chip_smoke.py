@@ -13,7 +13,7 @@ Run from the root of a checkout.  It
    time from torch.profiler (the kernel's own launches only, for the
    kernel; the median of three sessions, or of five when the three
    spread);
-4. drives five paths at full width, each with every launch count set to 0
+4. drives six paths at full width, each with every launch count set to 0
    just before it and read just after:
    - aug+infer: a synthetic packed set at 256px, BatchLoader(device_cache=
      True), augment_batch (one warp-kernel launch with the photometric
@@ -60,6 +60,28 @@ Run from the root of a checkout.  It
      rate, device split and its ConvTranspose and BatchNorm shares, B1's
      C=4 float32 form at B=8 and 128 beside its bound, and seg_e2e
      (4-plane augment + ResNetUnet bf16 + sigmoid > 0.5 at B=128);
+   - serve: ResNet18 and ResNetUnet float32 (init_weights from SEED, random
+     BN statistics) written as the reference's .pt under two weights
+     roots, the classifier's head biased to COVID in one and to Healthy in
+     the other; an InferenceServer on each, warmed up (B=1, 2, 4, 8), over
+     loopback.  Requests are PNGs (PIL, as the server) at 299x299 (the
+     Kaggle COVID-19 Radiography Database's size), 256x256, 512x384 and
+     1024x1024 (W x H).  Gates: (1) exactly 2 photometric launches a group
+     when COVID-forced, 1 when Healthy-forced; (2) the same 8 images
+     through the port's Pipeline on the card (TF32 off) and on the CPU:
+     the same classes, logits within 1e-3*max(1, |logit|max), seg
+     probabilities within 1e-3, each differing mask pixel's CPU
+     probability within 1e-3 of 0.5, overlays equal where the masks agree;
+     (3) a burst of 8 concurrent requests meets no new batch shape in
+     either forward's seen_batches and is micro-batched (max_batch >= 2);
+     (4) each overlay decodes to its request's H x W x 3 and /health names
+     both models; (5) batch_predict over 128 PNGs at 299x299 in batches of
+     64: 128 CSV rows, one overlay file per COVID row, 2 photometric
+     launches a batch with COVID rows and 1 otherwise.  Readings, under
+     PyTorch's default flags (cuDNN TF32 on): p50/p99 of 100 sequential
+     single 299x299 requests and their stages by host clock, 10 bursts of
+     8, the synchronizations of one group, the device time of one B=8 COVID
+     group and its parts beside its host clock, batch_predict's img/s;
 5. prints one JSON line with every kernel's launches, error and times, and
    as its last line {"ok": true, "device": {...}}.
 
@@ -74,12 +96,14 @@ import csv
 import functools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
 import tempfile
 import time
 import traceback
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -111,6 +135,12 @@ SEG_VAL = 32          # ... and 4 validation batches of 8
 SEG_EPOCHS = 3
 SEG_PARITY_BATCH = 4  # card against CPU, float32 (the CPU's float64 steps)
 SEG_E2E_BATCHES = 4   # seg_e2e reading: batches of BATCH
+SERVE_BATCHES = (1, 2, 4, 8)  # serve path: the micro-batch shapes (MAX_BATCH 8)
+SERVE_SHAPES = ((299, 299), (256, 256), (384, 512), (1024, 1024))  # (H, W)
+SERVE_REQUESTS = 100  # sequential single-image requests timed
+SERVE_BURSTS = 10     # bursts of 8 concurrent requests timed
+PREDICT_IMAGES = 128  # batch_predict: a directory of 299x299 PNGs
+PREDICT_BATCH = 64    # ... in batches of 64 (its default)
 SEED = 0
 PROFILE_SESSIONS = 3     # device_ms: profiler sessions per reading
 PROFILE_MARGIN_S = 0.05  # ... host idle at both ends of each (see _sessions)
@@ -120,6 +150,7 @@ PROFILE_SPREAD = 0.10
 # ... and brackets its calls with two launches of torch.cuda._sleep's kernel
 MARKER = "spin_kernel"
 MARKER_CYCLES = 1000
+EMPTY_SESSION_TAKES = 3  # takes of a session that recorded nothing at all
 
 
 def fail(msg: str) -> None:
@@ -141,27 +172,35 @@ def _sessions(fn, reps: int, sessions: int = PROFILE_SESSIONS):
     warm-up's; with it, none did.  From the aug+infer path on, every
     session still lost one record (49 of 50 calls, 0 of 1), so the calls
     sit between two marker kernels (MARKER): the record lost is a marker's,
-    and no reading counts markers.  Yields each session's device events
-    other than the markers and user annotations, and says so when a
-    session loses a marker."""
+    and no reading counts markers.  A session that records no device
+    operation at all, markers included, is taken again (up to
+    EMPTY_SESSION_TAKES times): one of the eval path's once lost every
+    record.  Yields each session's device events other than the
+    markers and user annotations, and says so when a session loses a
+    marker."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(sessions):
-        for _ in range(2):
-            fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            time.sleep(PROFILE_MARGIN_S)
-            torch.cuda._sleep(MARKER_CYCLES)
-            for _ in range(reps):
+        for _attempt in range(EMPTY_SESSION_TAKES):
+            for _ in range(2):
                 fn()
-            torch.cuda._sleep(MARKER_CYCLES)
             torch.cuda.synchronize()
-            time.sleep(PROFILE_MARGIN_S)
-        # a user annotation (optimizer.step records one) spans its kernels
-        # and the gaps between them on the device: not an operation
-        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
-                  and not getattr(e, "is_user_annotation", False)]
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                time.sleep(PROFILE_MARGIN_S)
+                torch.cuda._sleep(MARKER_CYCLES)
+                for _ in range(reps):
+                    fn()
+                torch.cuda._sleep(MARKER_CYCLES)
+                torch.cuda.synchronize()
+                time.sleep(PROFILE_MARGIN_S)
+            # a user annotation (optimizer.step records one) spans its kernels
+            # and the gaps between them on the device: not an operation
+            events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+                      and not getattr(e, "is_user_annotation", False)]
+            if events:
+                break
+            print("chip_smoke: a profiler session recorded no device operation, "
+                  "its markers included; taking it again")
         markers = sum(e.count for e in events if MARKER in e.key)
         if markers != 2:
             print(f"chip_smoke: a profiler session recorded {markers} of its 2 "
@@ -170,7 +209,7 @@ def _sessions(fn, reps: int, sessions: int = PROFILE_SESSIONS):
 
 
 def session_times(fn, reps: int, kernel: str = "", what: str = "",
-                  lost: int = 0, sessions: int = PROFILE_SESSIONS):
+                  lost: int = 0, sessions: int = PROFILE_SESSIONS, retake: bool = True):
     """Milliseconds of device time per call of fn() in each of `sessions`
     profiler sessions of `reps` calls (see _sessions): the
     kernels whose name contains `kernel` (one launch per call), or every
@@ -182,7 +221,11 @@ def session_times(fn, reps: int, kernel: str = "", what: str = "",
     allows a whole fn's sessions that many operations apart: for readings
     that gate nothing, since one of the train step's sessions of 6000
     records now and then loses a record besides a marker's, which moves
-    the reading by one kernel's share."""
+    the reading by one kernel's share.  When the counts of a whole fn's
+    sessions differ by more, the sessions are taken once again, and that
+    retake must agree: one session of B1's plain version at B=128 once
+    recorded 2140 operations against 2134 twice, 12 elementwise kernels
+    more, with no code change."""
     what = what or kernel or "fn"
     times, counts, names = [], [], []
     for events in _sessions(fn, reps, sessions):
@@ -194,6 +237,10 @@ def session_times(fn, reps: int, kernel: str = "", what: str = "",
         counts.append(sum(e.count for e in events))
         names.append({e.key[:80]: e.count for e in events})
     if max(counts) - min(counts) > (0 if kernel else lost) or (kernel and counts[0] != reps):
+        if retake and not kernel:
+            print(f"chip_smoke: the profiler recorded {counts} device operations of "
+                  f"{what} in {sessions} sessions of {reps} calls each; reading again")
+            return session_times(fn, reps, kernel, what, lost, sessions, retake=False)
         fail(f"the profiler recorded {counts} device operations of {what} in "
              f"{sessions} sessions of {reps} calls each: {names}")
     top = sorted(((e.device_time_total / reps / 1e3, e.key[:60]) for e in events),
@@ -386,18 +433,20 @@ def check_warp_kernel(card: str):
 
 
 def check_photometric_kernel(card: str):
-    """The photometric kernel against its plain version in eleven forms,
+    """The photometric kernel against its plain version in sixteen forms,
     all at tolerance 0 (same float32 operation order, no FMA): the eval
     form (alpha, beta and flip None, float32 out) and the explicit alpha=1,
     beta=0, no-flip form, each at the eval path's B=16 (the seg eval's
     too) and at B=128; the eval form with bf16 out at B=128 and B=8, as
     the train and seg paths validate; sampled
     alpha, beta and flips with bf16 out at B=128; C=1 and C=4 on the
-    vector path; and the scalar path (W=250, and an input one byte past
-    16-byte alignment).  Times the B=128 forms and the B=16 forms warm, the
-    eval path's form also with a cold L2, beside a same-traffic conversion
-    (`images.to(dtype)`) timed the same way.  Returns the eval path's
-    form's record, its time the cold reading."""
+    vector path; the scalar path (W=250, and an input one byte past
+    16-byte alignment); and the eval form f32 at the serve path's B=1, 2,
+    4 and 8 and batch_predict's B=64.  Times the B=128 forms, the B=16
+    forms and the serve path's B=1 and B=8 warm, the eval path's form also
+    with a cold L2, beside a same-traffic conversion (`images.to(dtype)`)
+    timed the same way.  Returns the eval path's form's record, its time
+    the cold reading."""
     from medseg_tpu_torch.core.config import AugmentConfig, IMAGENET_MEAN, IMAGENET_STD
     from medseg_tpu_torch.ops.augment import sample_augment_params
     from medseg_tpu_torch.ops.kernels.photometric import (
@@ -449,6 +498,14 @@ def check_photometric_kernel(card: str):
               misaligned, sampled(8), torch.bfloat16, norm3),
              ("eval form bf16 B=8 (seg path's validation)", images(SEG_BATCH), none,
               torch.bfloat16, norm3)]
+    # the serve path's forms: f32 at every micro-batch size, and batch_predict's
+    serve_cases = {b: f"eval form f32 B={b} (serve path)" for b in SERVE_BATCHES}
+    cases += [(name, images(b), none, torch.float32, norm3)
+              for b, name in serve_cases.items()]
+    cases.append((f"eval form f32 B={PREDICT_BATCH} (batch_predict)",
+                  images(PREDICT_BATCH), none, torch.float32, norm3))
+    serve_timed = (serve_cases[1], serve_cases[max(SERVE_BATCHES)])
+    timed = [c[0] for c in cases[:6]] + list(serve_timed)
     errs = {}
     for name, x, scalars, dtype, norm in cases:
         got = fused_photometric(x, *scalars, out_dtype=dtype, **norm)
@@ -466,12 +523,16 @@ def check_photometric_kernel(card: str):
     clear = scratch.zero_
     kernel_name, copy_name = "photometric_kernel<", "direct_copy_kernel"
     records = {}
-    for name, x, scalars, dtype, norm in cases[:6]:
+    for name, x, scalars, dtype, norm in (c for c in cases if c[0] in timed):
         run = lambda: fused_photometric(x, *scalars, out_dtype=dtype, **norm)
         convert = lambda: x.to(dtype)
-        ms = device_ms(run, 100, kernel_name)
-        conv_ms = device_ms(convert, 100, copy_name)
-        plain_ms = device_ms(lambda: fused_photometric_reference(
+        # the serve forms run for microseconds: readings without the spread
+        # rule (the median of the sessions), which gate nothing
+        timer = (device_ms if name not in serve_timed else
+                 lambda fn, reps, k="": float(np.median(session_times(fn, reps, k)[0])))
+        ms = timer(run, 100, kernel_name)
+        conv_ms = timer(convert, 100, copy_name)
+        plain_ms = timer(lambda: fused_photometric_reference(
             x, *scalars, out_dtype=dtype, **norm), 10)
         b_ms, b_by = photometric_bound_ms(x.shape[0], SIZE, SIZE, 3, dtype.itemsize,
                                           per_sample=scalars[0] is not None)
@@ -1590,6 +1651,386 @@ def run_seg_path(card: str):
     return launches
 
 
+def _xray_like(rng, h: int, w: int) -> np.ndarray:
+    """A gray RGB uint8 image of an X-ray's texture: a smooth vertical and
+    radial ramp with noise (sd 8), the same value in the three planes."""
+    y, x = np.mgrid[0:h, 0:w]
+    r = np.hypot((y - h / 2) / h, (x - w / 2) / w)
+    base = 60.0 + 120.0 * y / h + 60.0 * np.cos(6.0 * r)
+    gray = np.clip(base + rng.normal(0, 8, (h, w)), 0, 255).astype(np.uint8)
+    return np.repeat(gray[..., None], 3, axis=-1)
+
+
+def _serve_weights(card: str, base: Path, probe: torch.Tensor) -> dict:
+    """ResNet18 and ResNetUnet, float32, init_weights from SEED and random
+    BatchNorm statistics, written as the reference's .pt under two weights
+    roots: one whose classifier head is biased to COVID, one to Healthy
+    (4x the largest |logit| of `probe`, a uint8 grid batch, + 10).  The
+    ResNetUnet file is written once and linked into the second root."""
+    from medseg_tpu_torch.models.resnet import init_weights, resnet18
+    from medseg_tpu_torch.models.resnet_unet import resnet_unet
+    from medseg_tpu_torch.ops.augment import preprocess_eval_batch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cls, unet = resnet18(), resnet_unet()
+    for model in (cls, unet):
+        init_weights(model, gen)
+        randomize_bn_stats(model, gen)
+    with torch.inference_mode():
+        spread = cls.eval()(preprocess_eval_batch(probe)[0]).abs().max().item()
+    cls_sd = {k: v.cpu() for k, v in cls.state_dict().items()}
+    roots = {}
+    for verdict, winner in (("COVID", 0), ("Healthy", 1)):
+        root = roots[verdict] = base / verdict
+        (root / "classification_models").mkdir(parents=True)
+        (root / "segmentation_models").mkdir(parents=True)
+        bias = torch.zeros(3)
+        bias[winner] = 4.0 * spread + 10.0
+        torch.save(dict(cls_sd, **{"fc.1.bias": bias}),
+                   root / "classification_models" / "ResNet18_best_acc.pt")
+    seg_files = [r / "segmentation_models" / "ResNetUnet_best_loss.pt" for r in roots.values()]
+    torch.save({k: v.cpu() for k, v in unet.state_dict().items()}, seg_files[0])
+    os.link(seg_files[0], seg_files[1])
+    print(f"[{card}] serve path weights: ResNet18 and ResNetUnet float32 "
+          f"(init_weights, seed {SEED}, random BN statistics); the head bias "
+          f"{4.0 * spread + 10.0:.3f} forces COVID or Healthy")
+    return roots
+
+
+def _post(port: int, body: bytes, timeout: float = 120.0) -> dict:
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/predict", data=body,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+def _burst(port: int, bodies) -> list:
+    """POST every body at once, one thread each; the responses in order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(bodies)) as pool:
+        return list(pool.map(lambda b: _post(port, b), bodies))
+
+
+def _card_against_cpu(card: str, pipe, cpu_pipe, arrays) -> None:
+    """Gate 2: the same images and .pt through the port's Pipeline on the
+    card (TF32 off) and on the CPU, one process_batch each, its forwards'
+    outputs recorded on the way."""
+    from medseg_tpu_torch.infer.overlay import resize_mask_nearest
+
+    def run(p):
+        outs = []
+        forward = p._forward
+
+        def record(fn, grid):
+            outs.append(forward(fn, grid))
+            return outs[-1]
+
+        p._forward = record
+        try:
+            results = p.process_batch(arrays, "ResNetUnet")
+        finally:
+            del p._forward
+        if len(outs) != 2:
+            fail(f"serve path gate 2: process_batch ran {len(outs)} forwards, not 2")
+        return results, outs[0], outs[1][..., 0]
+
+    card_res, logits, probs = run(pipe)
+    cpu_res, logits_cpu, probs_cpu = run(cpu_pipe)
+    classes = [r[0] for r in card_res]
+    logit_err = np.abs(logits - logits_cpu).max()
+    logit_tol = 1e-3 * max(1.0, np.abs(logits_cpu).max())
+    prob_err = np.abs(probs - probs_cpu).max()
+    mask, mask_cpu = probs > 0.5, probs_cpu > 0.5
+    differ = mask != mask_cpu
+    near = np.abs(probs_cpu - 0.5) <= 1e-3
+    overlay_ok = True
+    for j, (a, b) in enumerate(zip(card_res, cpu_res)):
+        h, w = arrays[j].shape[:2]
+        agree = resize_mask_nearest(~differ[j], h, w)
+        overlay_ok &= a[2] is not None and b[2] is not None and bool(
+            np.array_equal(a[2][agree], b[2][agree]))
+    print(f"[{card}] serve path gate 2, {len(arrays)} images through Pipeline on the "
+          f"card (TF32 off) and on the CPU: classes {classes} vs "
+          f"{[r[0] for r in cpu_res]}; logits max_abs_err={logit_err:.3e} "
+          f"tol={logit_tol:.3e}; seg probabilities max_abs_err={prob_err:.3e} tol=1e-3; "
+          f"{int(differ.sum())} of {differ.size} mask pixels differ, all within 1e-3 of "
+          f"the threshold: {bool(near[differ].all())}; overlays equal where the masks "
+          f"agree: {overlay_ok}; mask share {mask.mean():.3f}")
+    if (classes != [r[0] for r in cpu_res] or not logit_err <= logit_tol
+            or not prob_err <= 1e-3 or not near[differ].all() or not overlay_ok):
+        fail("serve path gate 2: the card's Pipeline disagrees with the CPU's")
+
+
+def _device_split(card: str, pipe, arrays, host_group_ms: float) -> None:
+    """A reading: the device time of one B=8 COVID group (process_batch)
+    and of its parts, beside the host-clock group time."""
+    from medseg_tpu_torch.ops.augment import preprocess_eval_batch
+
+    grid = pipe._grid_batch(arrays, SIZE, pipe.device)
+    x, _ = preprocess_eval_batch(grid)
+
+    def forward(entry):
+        def run():
+            with torch.inference_mode():
+                entry[1].model(x)
+        return run
+
+    parts = {"group": ("the whole group (process_batch)",
+                       lambda: pipe.process_batch(arrays, "ResNetUnet"), 3),
+             "resize": (f"the {len(arrays)} per-image copies and resizes (_grid_batch)",
+                        lambda: pipe._grid_batch(arrays, SIZE, pipe.device), 5),
+             "b2": ("B2, one forward's", lambda: preprocess_eval_batch(grid), 20),
+             "cls": ("the ResNet18 float32 forward", forward(pipe._cls), 5),
+             "seg": ("the ResNetUnet float32 forward", forward(pipe._seg), 3)}
+    ms = {}
+    for key, (what, fn, reps) in parts.items():
+        times, top = session_times(fn, reps, what=what, lost=reps)
+        ms[key] = float(np.median(times))
+        print(f"[{card}] serve path, device time of {what}: {ms[key]:.4f} ms "
+              f"(median of sessions {[round(t, 4) for t in times]}); costliest "
+              f"operations (ms per call): {[(round(t, 4), n) for t, n in top[:3]]}")
+    h, w = arrays[0].shape[:2]
+    print(f"[{card}] serve path, one B={len(arrays)} COVID group of {w}x{h} images: "
+          f"device {ms['group']:.4f} ms against {host_group_ms:.3f} ms of host clock, "
+          f"so the card idles {1.0 - ms['group'] / host_group_ms:.1%} of the group; "
+          f"parts: resizes {ms['resize']:.4f}, B2 x2 {2 * ms['b2']:.4f}, ResNet18 "
+          f"{ms['cls']:.4f}, ResNetUnet {ms['seg']:.4f} ms (sum "
+          f"{ms['resize'] + 2 * ms['b2'] + ms['cls'] + ms['seg']:.4f})")
+
+
+def run_serve_path(card: str):
+    """`medseg serve` and `medseg predict` at full width: ResNet18 +
+    ResNetUnet float32 at 256px from the reference's .pt, behind
+    InferenceServer over loopback, after warmup; the five gates and the
+    readings of the module docstring."""
+    from medseg_tpu_torch.core.config import EvalConfig
+    from medseg_tpu_torch.infer.pipeline import Pipeline
+    from medseg_tpu_torch.infer.server import InferenceServer, _encode_png
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    requests = [_xray_like(rng, h, w) for h, w in SERVE_SHAPES for _ in range(2)]
+    bodies = [json.dumps({"image": _encode_png(a)}).encode()
+              for a in requests]
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    (HERE / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        probe = Pipeline._grid_batch(requests, SIZE, dev)
+        roots = _serve_weights(card, Path(tmp), probe)
+        servers, ports, httpds = {}, {}, []
+        t0 = time.perf_counter()
+        for verdict, root in roots.items():
+            server = servers[verdict] = InferenceServer(EvalConfig(weights_root=str(root)))
+            server.warmup(log=lambda *_: None)
+            httpd, ports[verdict] = server.start_background()
+            httpds.append(httpd)
+        print(f"[{card}] serve path: two servers loaded and warmed up (B={SERVE_BATCHES}, "
+              f"both forwards each, TF32 off) in {time.perf_counter() - t0:.3f} s")
+        try:
+            pipe = servers["COVID"].pipeline
+            cpu_pipe = Pipeline(EvalConfig(weights_root=str(roots["COVID"])), device="cpu")
+            cpu_pipe._load_models("ResNet18", "ResNetUnet")
+            with servers["COVID"].lock:
+                _card_against_cpu(card, pipe, cpu_pipe, requests)
+            del cpu_pipe
+
+            # PyTorch's default flags from here on: cuDNN may use TF32
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+            flag_text = ("PyTorch's default flags (cudnn.allow_tf32=True, "
+                         "cuda.matmul.allow_tf32=False)")
+            for server in servers.values():
+                server.warmup(log=lambda *_: None)
+            _serve_gates(card, servers, ports, requests, bodies)
+            _serve_readings(card, servers["COVID"], ports["COVID"], requests, bodies,
+                            flag_text)
+            _predict_gate(card, roots, rng, flag_text)
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+            for httpd in httpds:
+                httpd.shutdown()
+                httpd.server_close()
+
+
+def _serve_gates(card: str, servers: dict, ports: dict, requests, bodies) -> None:
+    """Gates 1, 3 and 4 on both servers: each request alone, then a burst of
+    all 8 at once."""
+    from medseg_tpu_torch.infer.server import _decode_image
+
+    for verdict, server in servers.items():
+        p = server.pipeline
+        seen = (set(p._cls[1].seen_batches), set(p._seg[1].seen_batches))
+        batches0 = server.stats["batches"]
+        torch.cuda.synchronize()
+        reset_counts()
+        outs = [_post(ports[verdict], b) for b in bodies] + _burst(ports[verdict], bodies)
+        groups = server.stats["batches"] - batches0
+        per_group = 2 if verdict == "COVID" else 1
+        got = read_counts(f"serve path, {verdict}-forced requests",
+                          {"fused_photometric": per_group * groups})
+        # gate 3: the burst met no new batch shape, and was micro-batched
+        after = (p._cls[1].seen_batches, p._seg[1].seen_batches)
+        if after != seen or server.stats["max_batch"] < 2:
+            fail(f"serve path gate 3 ({verdict}): batch shapes {seen} -> {after}, "
+                 f"max_batch {server.stats['max_batch']}")
+        # gate 4: every overlay decodes to its request's H x W x 3
+        for out, img in zip(outs, requests + requests):
+            if out["prediction"] != verdict:
+                fail(f"serve path: a {verdict}-forced request answered {out}")
+            if verdict == "COVID":
+                shape = _decode_image(out["overlay"]).shape
+                if shape != img.shape:
+                    fail(f"serve path gate 4: overlay {shape} for a {img.shape} request")
+            elif out["overlay"] is not None:
+                fail("serve path: a Healthy verdict came with an overlay")
+        overlays = ("every overlay decodes to its request's shape" if verdict == "COVID"
+                    else "no overlay")
+        with urllib.request.urlopen(f"http://127.0.0.1:{ports[verdict]}/health",
+                                    timeout=30) as resp:
+            health = json.loads(resp.read())
+        if health["models"] != {"classification": "ResNet18", "segmentation": "ResNetUnet"}:
+            fail(f"serve path gate 4: /health says {health}")
+        print(f"[{card}] serve path, {verdict}-forced server: {len(outs)} requests "
+              f"({len(bodies)} one at a time, then a burst of {len(bodies)}) in "
+              f"{groups} groups, largest {server.stats['max_batch']}; "
+              f"photometric launches {got['fused_photometric']} = {per_group} a group; "
+              f"the burst met no new batch shape ({sorted(s[0] for s in after[0])}); "
+              f"{overlays}; /health names "
+              f"{health['models']}")
+
+
+def _serve_readings(card: str, server, port: int, requests, bodies, flag_text: str) -> None:
+    """Latency of single requests (p50, p99) and its host-clock split,
+    bursts' throughput, the synchronizations of one group and the device
+    split of one B=8 COVID group: readings, gating nothing."""
+    import warnings
+
+    from medseg_tpu_torch.infer.overlay import red_overlay
+    from medseg_tpu_torch.infer.pipeline import Pipeline
+    from medseg_tpu_torch.infer.server import _decode_image, _encode_png
+
+    single = bodies[0]  # 299x299
+    lat = []
+    for _ in range(SERVE_REQUESTS):
+        t0 = time.perf_counter()
+        _post(port, single)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    p50, p90, p99 = np.percentile(lat, [50, 90, 99])
+    print(f"[{card}] serve path, {SERVE_REQUESTS} sequential requests of one "
+          f"{requests[0].shape[1]}x{requests[0].shape[0]} PNG (COVID-forced: classify, "
+          f"segment, overlay), full HTTP round trip over loopback, host clock, "
+          f"{flag_text}: p50 {p50:.3f} ms, p90 {p90:.3f} ms, p99 {p99:.3f} ms, "
+          f"max {max(lat):.3f} ms")
+
+    # the same request's stages, by host clock, each ending in its read or a
+    # synchronize; medians of 20
+    pipe, dev = server.pipeline, server.pipeline.device
+    payload = json.loads(single)["image"]
+    img = _decode_image(payload)
+    stages = {}
+
+    def stage(name, fn, reps=20):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        stages[name] = float(np.median(times))
+        return out
+
+    with server.lock:
+        stage("decode (base64 + PNG, PIL)", lambda: _decode_image(payload))
+        grid = stage("_to_grid (copy + resize)", lambda: Pipeline._to_grid(img[None], SIZE, dev))
+        stage("classify (B2 + ResNet18 + read)", lambda: pipe._forward(pipe._cls[1], grid))
+        probs = stage("segment (B2 + ResNetUnet + sigmoid + read)",
+                      lambda: pipe._forward(pipe._seg[1], grid)[0, :, :, 0])
+        mask = (probs > 0.5).astype(np.uint8) * 255
+        stage("overlay + PNG encode + base64",
+              lambda: _encode_png(red_overlay(img, mask)))
+    print(f"[{card}] serve path, one request's stages by host clock (median of 20, "
+          f"{flag_text}): " + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items())
+          + f"; sum {sum(stages.values()):.3f} ms against the round trip's p50 {p50:.3f}")
+
+    walls = []
+    for _ in range(SERVE_BURSTS):
+        t0 = time.perf_counter()
+        _burst(port, bodies)
+        walls.append(time.perf_counter() - t0)
+    print(f"[{card}] serve path, {SERVE_BURSTS} bursts of {len(bodies)} concurrent requests "
+          f"(2 of each of {SERVE_SHAPES} (H, W)), host clock, {flag_text}: median "
+          f"{np.median(walls) * 1e3:.3f} ms a burst (min {min(walls) * 1e3:.3f}, max "
+          f"{max(walls) * 1e3:.3f}), {SERVE_BURSTS * len(bodies) / sum(walls):.1f} img/s; "
+          f"{server.stats['batches']} groups so far, largest {server.stats['max_batch']}")
+
+    group = [requests[0]] * Pipeline.MAX_BATCH  # eight 299x299 images
+    with server.lock:
+        host = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            pipe.process_batch(group, "ResNetUnet")
+            host.append((time.perf_counter() - t0) * 1e3)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                pipe.process_batch(group, "ResNetUnet")
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        print(f"[{card}] serve path, one B={len(group)} COVID group: {syncs} "
+              f"synchronizations under set_sync_debug_mode('warn') (2 expected: one "
+              f"read per forward); host clock median {np.median(host):.3f} ms over 10")
+        _device_split(card, pipe, group, float(np.median(host)))
+
+
+def _predict_gate(card: str, roots: dict, rng, flag_text: str) -> None:
+    """Gate 5: batch_predict over a directory of PREDICT_IMAGES PNGs at
+    299x299 in batches of PREDICT_BATCH, with each weights root."""
+    from medseg_tpu_torch.core.config import EvalConfig
+    from medseg_tpu_torch.infer.batch import _write_png, batch_predict
+
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        src = Path(tmp) / "images"
+        src.mkdir()
+        for i in range(PREDICT_IMAGES):
+            _write_png(_xray_like(rng, 299, 299), src / f"xray{i:03d}.png")
+        paths = sorted(str(p) for p in src.glob("*.png"))
+        n_batches = -(-PREDICT_IMAGES // PREDICT_BATCH)
+        for verdict, root in roots.items():
+            out = Path(tmp) / verdict
+            stamps = []
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            results = batch_predict(paths, cfg=EvalConfig(weights_root=str(root)),
+                                    batch_size=PREDICT_BATCH, output_dir=str(out),
+                                    log=lambda line: stamps.append(time.perf_counter()))
+            wall = time.perf_counter() - t0
+            covid_rows = sum(r["prediction"] == "COVID" for r in results)
+            per_batch = 2 if covid_rows else 1
+            read_counts(f"batch_predict ({verdict}-forced)",
+                        {"fused_photometric": per_batch * n_batches})
+            with open(out / "predictions.csv", newline="") as f:
+                rows = list(csv.DictReader(f))
+            overlays = sorted(out.glob("*_overlay.png"))
+            want_covid = PREDICT_IMAGES if verdict == "COVID" else 0
+            if (len(rows) != PREDICT_IMAGES or covid_rows != want_covid
+                    or len(overlays) != covid_rows
+                    or sum(r["prediction"] == "COVID" for r in rows) != covid_rows):
+                fail(f"serve path gate 5 ({verdict}): {len(rows)} CSV rows, {covid_rows} "
+                     f"COVID, {len(overlays)} overlay files")
+            # the last batch alone, between its log line and the one before
+            steady = PREDICT_BATCH / (stamps[n_batches - 1] - stamps[n_batches - 2])
+            print(f"[{card}] batch_predict ({verdict}-forced), {PREDICT_IMAGES} PNGs of "
+                  f"299x299 in {n_batches} batches of {PREDICT_BATCH}, {flag_text}: "
+                  f"{len(rows)} CSV rows, {len(overlays)} overlay files, "
+                  f"{per_batch * n_batches} photometric launches ({per_batch} a batch); "
+                  f"{PREDICT_IMAGES / wall:.1f} img/s over the whole call ({wall:.3f} s, "
+                  f"loading both .pt included), {steady:.1f} img/s in its last batch "
+                  f"(decode, resize, forwards, overlays and PNG writes; host clock)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1628,6 +2069,7 @@ def main() -> int:
                 "stem_conv_pool": run_stem_path(card)["stem_conv_pool"]}
     run_train_path(card)
     run_seg_path(card)
+    run_serve_path(card)
 
     modules = {"warp_affine": warp_kernel, "fused_photometric": photometric,
                "stem_conv_pool": stem_kernel}

@@ -18,7 +18,7 @@ Differences from the JAX package:
   into the port's models, named as the reference's, with strict=True; the
   port's trainer writes the same files (train/checkpoint.py);
 - models the port lacks raise NotImplementedError naming their ROADMAP
-  item (segmentation: PENDING_SEG_MODELS), as does the mesh branch
+  item (PENDING_CLS_MODELS, PENDING_SEG_MODELS), as does the mesh branch
   (ROADMAP A.14); CLIPSeg's branch comes with it (A.12);
 - no retry: `_evaluate_with_retry` guarded against a relay the card does not
   use, so test_all_models calls evaluate_model directly.
@@ -41,17 +41,20 @@ from medseg_tpu_torch.ops.augment import preprocess_eval_batch
 CLS_MODELS = ("ResNet18", "ResNet50", "VGG16", "VGG19", "CLIP")
 SEG_MODELS = ("ResNetUnet", "AttentionUNet", "R2Unet", "R2AttUnet", "CLIPSeg")
 _SEG_NAMES = {m.lower() for m in SEG_MODELS}
-# segmentation models the port lacks yet, by the ROADMAP item that brings them
+# models the port lacks yet, by the ROADMAP item that brings them
+PENDING_CLS_MODELS = {"vgg16": "A.10", "vgg19": "A.10", "clip": "A.12"}
 PENDING_SEG_MODELS = {"attentionunet": "A.9", "r2unet": "A.9", "r2attunet": "A.9",
                       "clipseg": "A.12"}
 
 
 def refuse_pending(name: str, what: str) -> None:
-    """NotImplementedError for a segmentation model the port lacks yet."""
-    item = PENDING_SEG_MODELS.get(name.lower())
-    if item is not None:
-        raise NotImplementedError(f"{what} {name} (segmentation) waits for its "
-                                  f"port (ROADMAP {item})")
+    """NotImplementedError for a model the port lacks yet, naming its item."""
+    for task, pending in (("classification", PENDING_CLS_MODELS),
+                          ("segmentation", PENDING_SEG_MODELS)):
+        item = pending.get(name.lower())
+        if item is not None:
+            raise NotImplementedError(f"{what} {name} ({task}) waits for its "
+                                      f"port (ROADMAP {item})")
 
 
 def load_model_bundle(name: str, weights_root: str,

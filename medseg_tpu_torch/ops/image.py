@@ -1,15 +1,18 @@
-"""Affine builders, the exact reflect-101 warp and ImageNet normalization.
+"""Affine builders, the exact reflect-101 warp, ImageNet normalization and
+the bilinear resize.
 
-Counterpart of medseg_tpu/ops/image.py:117-234, NHWC, batched over the
-leading dim.  Matrices are dst->src 2x3 affines in unpadded pixel
+Counterpart of medseg_tpu/ops/image.py:31-71 and 117-234, NHWC, batched
+over the leading dim.  Matrices are dst->src 2x3 affines in unpadded pixel
 coordinates; every builder computes in float32 in the same operation order
 as the JAX package.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
+import numpy as np
 import torch
 
 
@@ -126,3 +129,86 @@ def normalize_imagenet(images: torch.Tensor, mean: Sequence[float],
     mean = torch.tensor(mean, dtype=torch.float32, device=dev) * 255.0
     std = torch.tensor(std, dtype=torch.float32, device=dev) * 255.0
     return (images.to(torch.float32) - mean) / std
+
+
+# --------------------------------------------------------------------------
+# Resize (medseg_tpu/ops/image.py:31-71)
+# --------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=64)
+def _linear_resize_matrix(n_out: int, n_in: int) -> np.ndarray:
+    """[n_out, n_in] bilinear interpolation matrix, half-pixel convention
+    (src = (dst + 0.5) * n_in / n_out - 0.5, edges clamped), as cv2 and
+    Albumentations resize."""
+    scale = n_in / n_out
+    src = (np.arange(n_out, dtype=np.float64) + 0.5) * scale - 0.5
+    x0 = np.floor(src).astype(np.int64)
+    w1 = src - x0
+    x1 = np.clip(x0 + 1, 0, n_in - 1)
+    x0 = np.clip(x0, 0, n_in - 1)
+    mat = np.zeros((n_out, n_in), dtype=np.float32)
+    rows = np.arange(n_out)
+    np.add.at(mat, (rows, x0), (1.0 - w1).astype(np.float32))
+    np.add.at(mat, (rows, x1), w1.astype(np.float32))
+    return mat
+
+
+@functools.lru_cache(maxsize=64)
+def _resize_taps(n_out: int, n_in: int, device: torch.device):
+    """The matrix's non-zeros on `device`: for each output row its first
+    and last non-zero column and their weights (the second weight 0 where
+    the row has one non-zero).  Built once per shape and device."""
+    mat = _linear_resize_matrix(n_out, n_in)
+    rows = np.arange(n_out)
+    nz = mat != 0
+    i0 = nz.argmax(axis=1)
+    i1 = n_in - 1 - nz[:, ::-1].argmax(axis=1)
+    w0 = mat[rows, i0]
+    w1 = np.where(i1 != i0, mat[rows, i1], np.float32(0.0))
+    return tuple(host_to_device(a, device) for a in (i0, i1, w0, w1))
+
+
+def host_to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on `device` (copied first where it is not
+    C-contiguous or not writable, as PIL's arrays are).  To the card it
+    goes from pinned memory without blocking, so the host does not wait
+    for the card's queue (a copy from pageable memory synchronizes the
+    stream)."""
+    t = torch.from_numpy(np.require(array, requirements=["C", "W"]))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _contract(x: torch.Tensor, dim: int, n_out: int) -> torch.Tensor:
+    """x (float32) contracted with the interpolation matrix along `dim`."""
+    i0, i1, w0, w1 = _resize_taps(n_out, x.shape[dim], x.device)
+    shape = [1] * x.dim()
+    shape[dim] = n_out
+    return (x.index_select(dim, i0) * w0.view(shape)
+            + x.index_select(dim, i1) * w1.view(shape))
+
+
+def resize_bilinear(images: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Batched bilinear resize, NHWC (or NHW) of any real dtype -> float32:
+    the two contractions of medseg_tpu's resize_bilinear, rows then
+    columns, with the same half-pixel matrices.
+
+    Each contraction is computed over the two non-zeros of each matrix row
+    (a gather, two float32 multiplies and an add) rather than by a GEMM.
+    Under torch.backends.cuda.matmul.allow_tf32 (or a float32 matmul
+    precision below "highest") a GEMM on the card would round its operands
+    to TF32's 10-bit mantissa and move the rounding of many pixels of a
+    uint8 resize; elementwise float32 operations never take TF32, so this
+    function computes the same float32 values whatever those flags say.
+    Against the JAX package's matmul the sums may round differently in the
+    last bit (the zero terms add exactly; the two products may be fused
+    there), which moves a value across a rounding tie only rarely."""
+    squeeze = images.dim() == 3
+    if squeeze:
+        images = images[..., None]
+    _, h, w, _ = images.shape
+    x = images.to(torch.float32)
+    if (h, w) != (out_h, out_w):
+        x = _contract(_contract(x, 1, out_h), 2, out_w)
+    return x[..., 0] if squeeze else x
