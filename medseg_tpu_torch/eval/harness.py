@@ -42,9 +42,8 @@ CLS_MODELS = ("ResNet18", "ResNet50", "VGG16", "VGG19", "CLIP")
 SEG_MODELS = ("ResNetUnet", "AttentionUNet", "R2Unet", "R2AttUnet", "CLIPSeg")
 _SEG_NAMES = {m.lower() for m in SEG_MODELS}
 # models the port lacks yet, by the ROADMAP item that brings them
-PENDING_CLS_MODELS = {"vgg16": "A.10", "vgg19": "A.10", "clip": "A.12"}
-PENDING_SEG_MODELS = {"attentionunet": "A.9", "r2unet": "A.9", "r2attunet": "A.9",
-                      "clipseg": "A.12"}
+PENDING_CLS_MODELS = {"clip": "A.12"}
+PENDING_SEG_MODELS = {"clipseg": "A.12"}
 
 
 def refuse_pending(name: str, what: str) -> None:

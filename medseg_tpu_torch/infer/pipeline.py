@@ -27,8 +27,11 @@ has seen in `fn.seen_batches` (the analog of the JAX test's jit cache
 size).  The segmentation forward reuses the classification grid when both
 models share it, where the JAX package resizes each original again.
 
-The port serves ResNet18/50 and ResNetUnet; VGG (224 grid) and CLIP/CLIPSeg
-(bicubic grids) wait for ROADMAP A.10 and A.12.
+The port serves ResNet18/50 and VGG16/19 (classification) and ResNetUnet,
+AttentionUNet, R2Unet and R2AttUnet (segmentation).  VGG's grid is 224
+(the reference's torchvision resize), the others' 256, so a VGG + U-Net
+group resizes each original twice, once per grid.  CLIP and CLIPSeg
+(bicubic grids) wait for ROADMAP A.12.
 """
 
 from __future__ import annotations
@@ -95,9 +98,12 @@ class Pipeline:
     @staticmethod
     def input_grid(name: str) -> Tuple[int, str]:
         """(size, resample) of the grid each original is resized to, once:
-        the 256 Albumentations transform (reference pipeline.py:186-193).
-        Reads IMG_SIZE at call time, as the JAX package does."""
+        VGG's 224 torchvision resize (reference pipeline.py:161-172), else
+        the 256 Albumentations transform (pipeline.py:186-193).  Reads
+        IMG_SIZE at call time, as the JAX package does."""
         refuse_pending(name, "serving")
+        if name.lower().startswith("vgg"):
+            return 224, "bilinear"
         return IMG_SIZE, "bilinear"
 
     def _load_models(self, classification_name: str, segmentation_name: str):

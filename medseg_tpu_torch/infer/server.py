@@ -12,8 +12,8 @@ POST /predict      {"image": <base64>, "segmentation_model": "ResNetUnet",
   -> {"prediction", "confidence", "analysis", "overlay": <base64 png>|null}
 GET  /health       -> {"status": "ok", "models": {...}, "batching": {...}}
 
-A model the port lacks yet, named in a request, is answered with a 400
-carrying the NotImplementedError's text.
+A model the port lacks yet (CLIP, CLIPSeg: ROADMAP A.12), named in a
+request, is answered with a 400 carrying the NotImplementedError's text.
 """
 
 from __future__ import annotations

@@ -18,6 +18,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from medseg_tpu_torch.models.vgg import VGG16_STAGES, VGG19_STAGES, _vgg_feature_indices
+
 _STAGES = {18: (2, 2, 2, 2), 50: (3, 4, 6, 3)}
 
 
@@ -68,15 +70,34 @@ def _resnet_trunk(sd: Dict[str, torch.Tensor], p: Mapping, s: Mapping, depth: in
                 _bn(sd, f"{prefix}.downsample.1", bp["down_bn"], bs["down_bn"])
 
 
+def _linear(sd: Dict[str, torch.Tensor], name: str, p: Mapping):
+    sd[f"{name}.weight"] = _tensor(p["kernel"], (1, 0))
+    sd[f"{name}.bias"] = _tensor(p["bias"])
+
+
 def resnet_classifier_state_dict(variables: Mapping, depth: int) -> Dict[str, torch.Tensor]:
     """flax ResNetClassifier variables -> state dict of models.resnet's
     ResNetClassifier (torchvision names, head at fc.1)."""
     sd: Dict[str, torch.Tensor] = {}
     _resnet_trunk(sd, variables["params"]["encoder"],
                   variables["batch_stats"]["encoder"], depth)
-    head = variables["params"]["head"]["fc"]
-    sd["fc.1.weight"] = _tensor(head["kernel"], (1, 0))
-    sd["fc.1.bias"] = _tensor(head["bias"])
+    _linear(sd, "fc.1", variables["params"]["head"]["fc"])
+    return sd
+
+
+def vgg_classifier_state_dict(variables: Mapping, depth: int) -> Dict[str, torch.Tensor]:
+    """flax VGGClassifier variables -> state dict of models.vgg's
+    VGGClassifier (torchvision names: features.{i}, classifier.0/3/7)."""
+    stages = {16: VGG16_STAGES, 19: VGG19_STAGES}[depth]
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    for stage, pairs in enumerate(_vgg_feature_indices(stages)):
+        for i, (conv, bn) in enumerate(pairs):
+            _conv(sd, f"features.{conv}", p["features"][f"conv{stage}_{i}"])
+            _bn(sd, f"features.{bn}", p["features"][f"bn{stage}_{i}"],
+                s["features"][f"bn{stage}_{i}"])
+    for name, index in (("fc1", 0), ("fc2", 3), ("head_fc", 7)):
+        _linear(sd, f"classifier.{index}", p[name])
     return sd
 
 
@@ -103,4 +124,62 @@ def resnet_unet_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
     _conv(sd, "decoder1.1", p["conv1"])
     _bn(sd, "decoder1.2", p["bn1"], s["bn1"])
     _conv(sd, "out", p["out"])
+    return sd
+
+
+def _conv_bn(sd: Dict[str, torch.Tensor], prefix: str, p: Mapping, s: Mapping):
+    """flax ConvBN (conv, bn) -> a Sequential's indices 0 and 1."""
+    _conv(sd, f"{prefix}.0", p["conv"])
+    _bn(sd, f"{prefix}.1", p["bn"], s["bn"])
+
+
+def _up_conv(sd: Dict[str, torch.Tensor], prefix: str, p: Mapping, s: Mapping):
+    """flax UpConv -> nn.blocks.UpConv (`up.1` conv, `up.2` BN)."""
+    _conv(sd, f"{prefix}.up.1", p["conv"]["conv"])
+    _bn(sd, f"{prefix}.up.2", p["conv"]["bn"], s["conv"]["bn"])
+
+
+def _attention_gate(sd: Dict[str, torch.Tensor], prefix: str, p: Mapping, s: Mapping):
+    """flax AttentionGate (w_g, w_x, psi) -> nn.blocks.AttentionGate
+    (W_g, W_x, psi)."""
+    for ours, theirs in (("w_g", "W_g"), ("w_x", "W_x"), ("psi", "psi")):
+        _conv_bn(sd, f"{prefix}.{theirs}", p[ours], s[ours])
+
+
+def _rrcnn(sd: Dict[str, torch.Tensor], prefix: str, p: Mapping, s: Mapping):
+    """flax RRCNNBlock (conv_1x1, rcnn1, rcnn2) -> nn.blocks.RRCNNBlock
+    (conv_1x1, RCNN.0.conv, RCNN.1.conv)."""
+    _conv(sd, f"{prefix}.conv_1x1", p["conv_1x1"])
+    for i, name in enumerate(("rcnn1", "rcnn2")):
+        _conv_bn(sd, f"{prefix}.RCNN.{i}.conv", p[name]["conv"], s[name]["conv"])
+
+
+def attention_unet_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """flax AttentionUNet variables -> state dict of
+    models.attention_unet's AttentionUNet (the reference's names)."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(1, 6):
+        _double_conv(sd, f"conv{i}", p[f"conv{i}"], s[f"conv{i}"])
+    for i in range(5, 1, -1):
+        _up_conv(sd, f"up{i}", p[f"up{i}"], s[f"up{i}"])
+        _attention_gate(sd, f"att{i}", p[f"att{i}"], s[f"att{i}"])
+        _double_conv(sd, f"up_conv{i}", p[f"up_conv{i}"], s[f"up_conv{i}"])
+    _conv(sd, "out", p["out"])
+    return sd
+
+
+def r2u_net_state_dict(variables: Mapping, attention: bool) -> Dict[str, torch.Tensor]:
+    """flax R2UNet variables -> state dict of models.r2u_net's R2UNet
+    (R2Unet, or R2AttUnet with attention=True; the reference's names)."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(1, 6):
+        _rrcnn(sd, f"RRCNN{i}", p[f"rrcnn{i}"], s[f"rrcnn{i}"])
+    for i in range(5, 1, -1):
+        _up_conv(sd, f"up{i}", p[f"up{i}"], s[f"up{i}"])
+        if attention:
+            _attention_gate(sd, f"att{i}", p[f"att{i}"], s[f"att{i}"])
+        _rrcnn(sd, f"up_RRCNN{i}", p[f"up_rrcnn{i}"], s[f"up_rrcnn{i}"])
+    _conv(sd, "conv_1x1", p["out"])
     return sd

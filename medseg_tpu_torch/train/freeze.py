@@ -5,9 +5,9 @@ Counterpart of medseg_tpu/train/freeze.py.  The reference freezes with
 masks the optimizer.  The port does what the reference does: a frozen
 parameter gets requires_grad=False and stays out of the optimizer, so it
 gets no update, no weight decay and no share of the global-norm clip.
-Names are torchvision's (`fc.1.weight`, `layer1.0.conv1.weight`, ...), and
-the reference ResNetUnet's (`encoder1.0.weight`, `decoder5.up_sample.bias`,
-...).
+Names are torchvision's (`fc.1.weight`, `layer1.0.conv1.weight`,
+`classifier.0.weight`, ...), and the reference ResNetUnet's
+(`encoder1.0.weight`, `decoder5.up_sample.bias`, ...).
 """
 
 from __future__ import annotations
@@ -26,10 +26,13 @@ def all_trainable(name: str) -> bool:
 def head_only(model_name: str) -> NamePredicate:
     """Stage-1 classification predicate: the attr the reference unfreezes
     (utils/helpers.py:270-276), the `fc` head for ResNets (the JAX
-    package's `path[0] == "head"`).  VGG's classifier stack comes with the
-    VGG port (ROADMAP A.10)."""
-    if model_name.lower().startswith("resnet"):
-        return lambda name: name.startswith("fc.")
+    package's `path[0] == "head"`) and the whole `classifier` stack for
+    VGGs (its fc1, fc2 and head_fc)."""
+    name = model_name.lower()
+    if name.startswith("resnet"):
+        return lambda n: n.startswith("fc.")
+    if name.startswith("vgg"):
+        return lambda n: n.startswith("classifier.")
     raise ValueError(f"no stage-1 head rule for {model_name}")
 
 
@@ -53,7 +56,8 @@ def finetune_filter(model_name: str) -> NamePredicate:
     frozen (reference ResnetUnet.py:30,45-46): the JAX package tests
     path[0] == "encoder"; here the encoder is the top-level modules
     encoder1-encoder5.  CLIP's and CLIPSeg's rules come with their
-    finetuners (ROADMAP A.13); every other model trains whole."""
+    finetuners (ROADMAP A.13); every other model (the AttentionUNet and R2
+    U-Nets among them) trains whole."""
     name = model_name.lower()
     if name == "resnetunet":
         return lambda n: n.split(".", 1)[0] not in _UNET_ENCODER

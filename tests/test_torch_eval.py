@@ -117,8 +117,8 @@ def test_all_models_without_weights_returns_nothing(tmp_path):
 
 def test_segmentation_and_mesh_are_not_ported_yet(tmp_path):
     loader = BatchLoader(synthetic_cls(4, SIZE), 4, shuffle=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.9"):
-        H.evaluate_model("AttentionUNet", loader, {}, log=_quiet, device="cpu")
+    with pytest.raises(NotImplementedError, match="A.12"):
+        H.evaluate_model("CLIPSeg", loader, {}, log=_quiet, device="cpu")
     with pytest.raises(NotImplementedError, match="A.14"):
         H.evaluate_model("ResNet18", loader, {}, log=_quiet, mesh=object(),
                          device="cpu")

@@ -83,8 +83,8 @@ def test_train_model_raises_without_a_card(monkeypatch, tmp_path):
     cfg = TrainConfig(epochs=1, save_root=str(tmp_path))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_model("ResNet18", loader, loader, cfg, log=print)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        train_model("AttentionUNet", loader, loader, cfg, log=print, device="cpu")
+    with pytest.raises(NotImplementedError, match="A.12"):
+        train_model("CLIPSeg", loader, loader, cfg, log=print, device="cpu")
     assert not tmp_path.exists() or not any(tmp_path.iterdir())
 
 
@@ -108,8 +108,10 @@ def test_registry_finds_the_model_factories():
     entry = get_model("resnet18")  # case-insensitive, as the reference's dispatch
     assert entry["factory"] is resnet.resnet18 and entry["task"] == "classification"
     assert get_model("ResNet50")["factory"] is resnet.resnet50
+    assert get_model("vgg16")["name"] == "VGG16"
+    assert get_model("r2attunet")["task"] == "segmentation"
     with pytest.raises(ValueError, match="Unknown model"):
-        get_model("VGG16")
+        get_model("CLIP")
 
 
 def _warp_inputs(b=2, size=16, c=3):

@@ -8,6 +8,7 @@ import base64
 import csv
 import io
 import json
+import shutil
 import threading
 import time
 import urllib.error
@@ -25,7 +26,7 @@ from medseg_tpu_torch.infer import batch as tbatch
 from medseg_tpu_torch.infer import pipeline as tpipeline
 from medseg_tpu_torch.infer.pipeline import Pipeline
 from medseg_tpu_torch.infer.server import InferenceServer
-from tests.torch_infer_helpers import GRID, images, write_weights
+from tests.torch_infer_helpers import GRID, images, write_weights, write_zoo_weights
 
 torch.set_num_threads(1)
 
@@ -111,9 +112,7 @@ def test_server_bad_request_and_unknown_path():
 
 
 @pytest.mark.parametrize("field,name,item", [
-    ("classification_model", "VGG16", "A.10"), ("classification_model", "CLIP", "A.12"),
-    ("segmentation_model", "AttentionUNet", "A.9"),
-    ("segmentation_model", "CLIPSeg", "A.12")])
+    ("classification_model", "CLIP", "A.12"), ("segmentation_model", "CLIPSeg", "A.12")])
 def test_server_pending_model_is_a_400(covid_root, field, name, item):
     """A pending model named in a request is answered with the
     NotImplementedError's text, never the failed-to-load placeholder."""
@@ -128,6 +127,36 @@ def test_server_pending_model_is_a_400(covid_root, field, name, item):
         assert server.pipeline._seg is None or server.pipeline._seg[1] is not None
     finally:
         httpd.shutdown()
+
+
+@pytest.mark.parametrize("field,name", [("classification_model", "VGG16"),
+                                        ("segmentation_model", "AttentionUNet")])
+def test_server_serves_zoo_model(covid_root, tmp_path, field, name):
+    """A request naming VGG16 (224 grid; fresh-initialized, as the JAX
+    package falls back without its weights) or AttentionUNet (its own .pt,
+    behind the COVID-forced ResNet18) is answered with a 200, and /health
+    names the model."""
+    root = write_weights(tmp_path, winner=0)
+    if name == "AttentionUNet":
+        write_zoo_weights(root, name)
+    server = _server(root)
+    httpd, port = server.start_background()
+    try:
+        img = images(2, [(80, 72)])[0]
+        out = _post(port, {"image": _b64png(img), field: name})
+        assert out["prediction"] in ("COVID", "Healthy", "Non-COVID")
+        if name == "AttentionUNet":
+            assert out["prediction"] == "COVID"
+            assert _read(base64.b64decode(out["overlay"])).shape == img.shape
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/health", timeout=30) as resp:
+            models = json.loads(resp.read())["models"]
+        assert name in models.values()
+        entry = server.pipeline._cls if name == "VGG16" else server.pipeline._seg
+        size = 224 if name == "VGG16" else GRID
+        assert {tuple(s[1:3]) for s in entry[1].seen_batches} == {(size, size)}
+    finally:
+        httpd.shutdown()
+        shutil.rmtree(root)  # ~0.2 GB
 
 
 def test_server_warmup_covers_all_burst_shapes(covid_root):
@@ -238,8 +267,8 @@ def test_batch_predict_missing_classifier_weights(tmp_path):
     with pytest.raises(FileNotFoundError):
         tbatch.batch_predict(["nope.png"], cfg=EvalConfig(weights_root=str(tmp_path)),
                              log=lambda *_: None, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.10"):
-        tbatch.batch_predict(["nope.png"], cls_name="VGG19", device="cpu",
+    with pytest.raises(NotImplementedError, match="A.12"):
+        tbatch.batch_predict(["nope.png"], cls_name="CLIP", device="cpu",
                              cfg=EvalConfig(weights_root=str(tmp_path)))
 
 

@@ -147,7 +147,7 @@ def test_trainable_set_matches_jax_mask(stage):
     assert got == want and len(trainable) == len(want)
     assert (got == {"fc.1.weight", "fc.1.bias"}) == (stage == 1)
     with pytest.raises(ValueError, match="no stage-1 head rule"):
-        head_only("VGG16")
+        head_only("CLIP")
 
 
 # --- train-mode forward -------------------------------------------------------

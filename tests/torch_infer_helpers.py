@@ -1,8 +1,9 @@
 """Shared set-up of the inference tests (test_torch_infer.py,
-test_torch_server.py): JAX-initialized ResNet18 and ResNetUnet variables
-with random BatchNorm statistics, written once as the reference's `.pt`
-state dicts through the port's interop/from_jax, which both packages'
-pipelines then read; and seeded uint8 test images."""
+test_torch_server.py, test_torch_zoo_infer.py): JAX-initialized ResNet18
+and ResNetUnet variables with random BatchNorm statistics, written once as
+the reference's `.pt` state dicts through the port's interop/from_jax,
+which both packages' pipelines then read; the rest of the CNN zoo's `.pt`
+from the port's init; and seeded uint8 test images."""
 
 import functools
 
@@ -12,9 +13,10 @@ import numpy as np
 import torch
 
 from medseg_tpu.core.registry import get_model as jget_model
+from medseg_tpu_torch.core.registry import get_model
 from medseg_tpu_torch.interop.from_jax import (resnet_classifier_state_dict,
                                                resnet_unet_state_dict)
-from medseg_tpu_torch.models.resnet import resnet18
+from medseg_tpu_torch.models.resnet import init_weights, resnet18
 
 GRID = 64  # IMG_SIZE of both pipeline modules in these tests
 
@@ -72,4 +74,17 @@ def write_weights(root, winner=None, cls=True, seg=True):
         (root / "segmentation_models").mkdir(parents=True, exist_ok=True)
         torch.save(resnet_unet_state_dict(jax_variables("ResNetUnet")),
                    root / "segmentation_models" / "ResNetUnet_best_loss.pt")
+    return root
+
+
+def write_zoo_weights(root, name, seed=0):
+    """The reference's .pt file of zoo model `name` under `root`: the port's
+    init_weights from a CPU generator seeded `seed`."""
+    entry = get_model(name)
+    model = init_weights(entry["factory"](device="cpu"), torch.Generator().manual_seed(seed))
+    seg = entry["task"] == "segmentation"
+    sub = root / ("segmentation_models" if seg else "classification_models")
+    sub.mkdir(parents=True, exist_ok=True)
+    torch.save(model.state_dict(),
+               sub / f"{entry['name']}_{'best_loss' if seg else 'best_acc'}.pt")
     return root
