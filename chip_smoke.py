@@ -13,10 +13,13 @@ Run from the root of a checkout.  It
    time from torch.profiler (the kernel's own launches only, for the
    kernel; the median of three sessions, or of five when the three
    spread); the zoo path's forms (B1 at C=3 bf16 B=16, B2's eval form
-   f32 at 224^2 for B=1 and 8 and bf16 at B=16, 256^2) at tolerance 0,
-   timed beside their bounds;
-4. drives seven paths at full width, each with every launch count set to
-   0 just before it and read just after:
+   f32 at 224^2 for B=1 and 8 and bf16 at B=16, 256^2) and the clip
+   path's (B2's eval form f32 with CLIP's mean and std at 224^2 and 352^2
+   for B=1 and 8) at tolerance 0, timed beside their bounds and
+   `x.to(dtype)` of the same bytes;
+4. drives eight paths at full width, each with every launch count set to
+   0 just before it and read just after (clip before zoo: late in a run
+   profiler sessions lose records, and the zoo's readings tolerate it):
    - aug+infer: a synthetic packed set at 256px, BatchLoader(device_cache=
      True), augment_batch (one warp-kernel launch with the photometric
      epilogue) -> ResNet18 bf16 forward -> argmax -> classification_metrics;
@@ -103,6 +106,25 @@ Run from the root of a checkout.  It
      B2 launches a group, VGG16 on 224 and the U-Net on 256, every overlay
      at its request's size, the same with R2AttUnet as the segmenter, and
      one B=8 group's device time beside its host clock;
+   - clip: CLIP (ViT-B/32 at 224, the full 49408-token text tower) and
+     CLIPSeg (rd64-refined, ViT-B/16 at 352) float32, init_weights from
+     SEED, written as the reference's HF-named .pt (~1.2 GB, removed
+     afterwards), CLIP COVID-forced through its image side; prompt ids
+     from a JSON bundle of arbitrary ids (MEDSEG_PROMPT_IDS).  Gates:
+     test_all_models over a 64-image 256px split with no B2 launch (the
+     harness resizes floats), both CSVs read back, the prompt features
+     and CLIPSeg's embedding on the card within 1e-5 of the CPU's; servers
+     for CLIP + CLIPSeg, ResNet18 + CLIPSeg and CLIP + ResNetUnet, each
+     warmed up, with exactly 1 B2 launch a group + 1 per group with a
+     COVID prediction (counted from the groups' predictions), no new
+     batch shape in a burst, overlays at each request's size; the card's
+     CLIP + CLIPSeg Pipeline against the CPU's on 8 images at 299^2,
+     512x384 and 1024^2 (bicubic uint8 grids equal but for rounding ties,
+     logits within 1e-3*max(1, |logit|max), probabilities within 1e-3).
+     Readings: a B=8 forward of each split into GEMMs, SDPA, LayerNorm,
+     B2 and the rest with the GEMMs' TFLOP/s, the patch embedding as a
+     GEMM beside cuDNN's conv, peak memory, and p50/p99 of 299^2
+     requests through CLIP + CLIPSeg with their stages;
 5. prints one JSON line with every kernel's launches, error and times, and
    as its last line {"ok": true, "device": {...}}.
 
@@ -1301,10 +1323,10 @@ def run_train_path(card: str):
                  f"alone: {logs2}")
         print(f"  {logs2[0].strip()}\n  {logs2[1].strip()}")
 
-        state = load_model_bundle("ResNet18", tmp, seg=False)
-        if state is None:
+        bundle = load_model_bundle("ResNet18", tmp, seg=False)
+        if bundle is None:
             fail(f"train path: no best checkpoint was written: {logs}")
-        resnet18().load_state_dict(state, strict=True)
+        resnet18().load_state_dict(bundle[0], strict=True)
         ev = evaluate_model("ResNet18", val_loader, None,
                             EvalConfig(weights_root=tmp), log=lambda *_: None)
         if ev["confusion_matrix"].sum() != VAL_SAMPLES:
@@ -1657,10 +1679,10 @@ def run_seg_path(card: str):
         print("\n".join(f"  {line.strip()}" for line in logs2[:3]))
 
         # the best checkpoint through `medseg eval`'s segmentation branch
-        state = load_model_bundle("ResNetUnet", tmp, seg=True)
-        if state is None:
+        bundle = load_model_bundle("ResNetUnet", tmp, seg=True)
+        if bundle is None:
             fail(f"seg path: no best checkpoint was written: {logs}")
-        resnet_unet().load_state_dict(state, strict=True)
+        resnet_unet().load_state_dict(bundle[0], strict=True)
         eval_loader = BatchLoader(ds, EVAL_BATCH, shuffle=False, indices=val_idx)
         elogs = []
         torch.cuda.synchronize()
@@ -2193,10 +2215,10 @@ def _zoo_train(card: str, name: str, root: str):
         runs.append((wall, [line.strip() for line in logs if line.strip()]))
     sub = "segmentation_models" if seg else "classification_models"
     (Path(root) / sub / f"{name}_resume.pt").unlink()  # VGG's: 1.6 GB
-    state = load_model_bundle(name, root, seg=seg)
-    if state is None:
+    bundle = load_model_bundle(name, root, seg=seg)
+    if bundle is None:
         fail(f"zoo path, {name}: no best checkpoint was written: {runs[0][1]}")
-    get_model(name)["factory"]().load_state_dict(state, strict=True)
+    get_model(name)["factory"]().load_state_dict(bundle[0], strict=True)
     print(f"[{card}] zoo path, train_model({name!r}) bf16 B={train_loader.batch_size} at "
           f"{SIZE}px, {ZOO_EPOCHS} epochs of {n_steps} steps + {n_val} validation "
           f"batches (seed {SEED}) in {runs[0][0]:.3f} s, a resume to epoch "
@@ -2366,6 +2388,19 @@ def _zoo_eval(card: str, root: str) -> None:
           + "; both CSVs read back to the metrics")
 
 
+def per_call_ms(fn, reps: int, kname: str, what: str):
+    """The median over profiler sessions of the named kernel's device time
+    per recorded launch, and each session's: late in a run, sessions of 50
+    launches recorded 49 (and one marker of two) three times in a row."""
+    times = []
+    for events in _sessions(fn, reps):
+        n = sum(e.count for e in events if kname in e.key)
+        if not reps - 2 <= n <= reps:
+            fail(f"{what}: {n} launches of {kname} recorded for {reps} calls")
+        times.append(sum(e.device_time_total for e in events if kname in e.key) / n / 1e3)
+    return float(np.median(times)), times
+
+
 def _zoo_kernel_checks(card: str) -> None:
     """The kernel forms the zoo path adds, each against its plain version at
     tolerance 0 and timed by device time beside its byte bound: B1 at C=3
@@ -2374,8 +2409,6 @@ def _zoo_kernel_checks(card: str) -> None:
     B=16, 256^2 (VGG's validation)."""
     from medseg_tpu_torch.core.config import AugmentConfig, IMAGENET_MEAN, IMAGENET_STD
     from medseg_tpu_torch.ops.augment import _combined_matrices, sample_augment_params
-    from medseg_tpu_torch.ops.kernels.photometric import (fused_photometric,
-                                                          fused_photometric_reference)
     from medseg_tpu_torch.ops.kernels.warp_kernel import warp_affine_kernel
     from medseg_tpu_torch.ops.warp_fast import warp_affine_fast
 
@@ -2393,48 +2426,56 @@ def _zoo_kernel_checks(card: str) -> None:
               mean=tuple(m * 255.0 for m in IMAGENET_MEAN),
               std=tuple(s * 255.0 for s in IMAGENET_STD))
     norm = dict(mean=IMAGENET_MEAN, std=IMAGENET_STD)
-    # (name, kernel, plain, kernel name, reps, bound)
+    # (name, kernel, plain, kernel name, reps, bound, same-traffic conversion)
     cases = [(f"B1 C=3 u8->bf16 with epilogue B={b} {SIZE}^2 (VGG train step)",
               lambda: warp_affine_kernel(imgs, mats, **kw),
               lambda: warp_affine_fast(imgs, mats, **kw), "warp_affine_kernel<", 50,
-              warp_bound_ms(b, SIZE, SIZE, 3, 2))]
-    for bb, size, dtype, what in ((1, 224, torch.float32, "VGG serving"),
-                                  (8, 224, torch.float32, "VGG serving"),
-                                  (b, SIZE, torch.bfloat16, "VGG validation")):
-        x = u8(bb, size)
-        cases.append((f"B2 eval form u8->{str(dtype)[6:]} B={bb} {size}^2 ({what})",
-                      functools.partial(fused_photometric, x, None, None, None,
-                                        out_dtype=dtype, **norm),
-                      functools.partial(fused_photometric_reference, x, None, None, None,
-                                        out_dtype=dtype, **norm), "photometric_kernel<", 100,
-                      photometric_bound_ms(bb, size, size, 3, dtype.itemsize,
-                                           per_sample=False)))
+              warp_bound_ms(b, SIZE, SIZE, 3, 2), None)]
+    cases += [b2_eval_form(u8(bb, size), dtype, norm, f"({what})")
+              for bb, size, dtype, what in ((1, 224, torch.float32, "VGG serving"),
+                                            (8, 224, torch.float32, "VGG serving"),
+                                            (b, SIZE, torch.bfloat16, "VGG validation"))]
+    check_forms(card, "zoo kernel check", cases)
 
-    def per_call_ms(fn, reps, kname):
-        """The median over profiler sessions of the named kernel's device
-        time per recorded launch: late in a run, sessions of 50 launches
-        recorded 49 (and one marker of two) three times in a row."""
-        times = []
-        for events in _sessions(fn, reps):
-            n = sum(e.count for e in events if kname in e.key)
-            if not reps - 2 <= n <= reps:
-                fail(f"zoo kernel check: {n} launches of {kname} recorded for {reps} calls")
-            times.append(sum(e.device_time_total for e in events if kname in e.key) / n / 1e3)
-        return float(np.median(times)), times
 
-    for what, kernel, plain, kname, reps, (b_ms, b_by) in cases:
+def b2_eval_form(x: torch.Tensor, dtype, norm: dict, what: str) -> tuple:
+    """A check_forms case: B2's eval form of uint8 `x` with `norm`'s mean
+    and std, out in `dtype`."""
+    from medseg_tpu_torch.ops.kernels.photometric import (fused_photometric,
+                                                          fused_photometric_reference)
+
+    b, h, w, c = x.shape
+    return (f"B2 eval form u8->{str(dtype)[6:]} B={b} {h}^2 {what}",
+            functools.partial(fused_photometric, x, None, None, None, out_dtype=dtype,
+                              **norm),
+            functools.partial(fused_photometric_reference, x, None, None, None,
+                              out_dtype=dtype, **norm), "photometric_kernel<", 100,
+            photometric_bound_ms(b, h, w, c, dtype.itemsize, per_sample=False),
+            lambda: x.to(dtype))
+
+
+def check_forms(card: str, label: str, cases) -> None:
+    """Each (name, kernel, plain, kernel name, reps, (bound ms, by), convert)
+    case against its plain version at tolerance 0, then timed by device
+    time per launch beside its bound, its plain version and, where given,
+    a conversion that moves the same bytes (`x.to(dtype)`)."""
+    for what, kernel, plain, kname, reps, (b_ms, b_by), convert in cases:
         got = kernel()
         torch.cuda.synchronize()
         err = (got.float() - plain().float()).abs().max().item()
         if err != 0.0:
-            fail(f"zoo kernel check, {what}: max_abs_err {err} against the plain version")
-        ms, sessions = per_call_ms(kernel, reps, kname)
+            fail(f"{label}, {what}: max_abs_err {err} against the plain version")
+        ms, sessions = per_call_ms(kernel, reps, kname, label)
         plain_ms = float(np.median(session_times(plain, 5, what=f"plain {what}",
                                                  lost=5)[0]))
-        print(f"[{card}] zoo kernel check, {what}: max_abs_err=0.0 tol=0 (same float32 "
+        same = ""
+        if convert is not None:
+            conv_ms, _ = per_call_ms(convert, reps, "direct_copy_kernel", label)
+            same = f"; same-traffic x.to(dtype) {conv_ms:.4f} ms"
+        print(f"[{card}] {label}, {what}: max_abs_err=0.0 tol=0 (same float32 "
               f"operation order, no FMA); kernel {ms:.4f} ms (sessions "
               f"{[round(t, 4) for t in sessions]}), bound {b_ms:.4f} ms "
-              f"({b_by}), {b_ms / ms:.0%} of it; plain {plain_ms:.4f} ms")
+              f"({b_by}), {b_ms / ms:.0%} of it; plain {plain_ms:.4f} ms{same}")
 
 
 def _zoo_serve_weights(card: str, base: Path, probe: torch.Tensor) -> Path:
@@ -2588,6 +2629,449 @@ def run_zoo_path(card: str) -> None:
              + "\n".join(f"{n}: {f}" for n, f in faults.items()))
 
 
+CLIP_EVAL_SAMPLES = 64  # clip path: a synthetic 256px split, 4 batches of 16
+CLIP_SHAPES = ((299, 299),) * 3 + ((384, 512),) * 3 + ((1024, 1024),) * 2  # (H, W)
+CLIP_PAIRS = (("CLIP", "CLIPSeg"), ("ResNet18", "CLIPSeg"), ("CLIP", "ResNetUnet"))
+CLIP_REQUESTS = 40  # sequential 299x299 requests timed through CLIP + CLIPSeg
+CLIP_EOS = 49407  # eos_token_id of CLIP's vocabulary; 49406 starts a prompt
+
+
+def _clip_kernel_checks(card: str) -> None:
+    """B2's forms on the clip path, through check_forms: the eval form f32
+    with CLIP's mean and std at CLIP's 224^2 (672-byte rows) and CLIPSeg's
+    352^2 (1056-byte rows), B=1 and 8."""
+    from medseg_tpu_torch.core.config import (CLIP_IMG_SIZE, CLIP_MEAN, CLIP_STD,
+                                              CLIPSEG_IMG_SIZE)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    norm = dict(mean=CLIP_MEAN, std=CLIP_STD)
+    check_forms(card, "clip kernel check", [
+        b2_eval_form(torch.randint(0, 256, (b, size, size, 3), generator=gen,
+                                   device="cuda", dtype=torch.uint8), torch.float32, norm,
+                     f"with CLIP's mean/std ({what} serving)")
+        for size, what in ((CLIP_IMG_SIZE, "CLIP"), (CLIPSEG_IMG_SIZE, "CLIPSeg"))
+        for b in (1, 8)])
+
+
+def _clip_weights(card: str, base: Path, probe: torch.Tensor) -> dict:
+    """CLIP (ViT-B/32, the full CLIPModel with its 49408-token text tower)
+    and CLIPSeg (rd64-refined, ViT-B/16) float32, init_weights from SEED,
+    written as the reference's HF-named .pt under `base/clip`; a prompt-ids
+    bundle of arbitrary ids ending in eos; and the serve path's
+    COVID-forced ResNet18 + ResNetUnet root (_serve_weights), with both
+    CLIP files linked into it.  CLIP is COVID-forced too, as ResNet18 by
+    its head bias: post_layernorm's bias 30 on feature 0 and
+    visual_projection's column 0 at 10x the unit part of COVID's prompt
+    feature orthogonal to the other two prompts' make every image's
+    feature score COVID highest, so every group runs the segmenter.
+    Returns {"eval": the CLIP-only root, "serve": the four-model root,
+    "ids": the bundle}."""
+    from medseg_tpu_torch.interop.prompts import ALL_PROMPTS
+    from medseg_tpu_torch.interop.text_features import clip_text_features
+    from medseg_tpu_torch.models.clip import CLIPModule, init_weights
+    from medseg_tpu_torch.models.clipseg import CLIPSegModel
+
+    rng = np.random.default_rng(SEED)
+    rows = [[49406] + rng.integers(1, 49406, n).tolist() + [CLIP_EOS] for n in (13, 10, 9)]
+    width = max(map(len, rows))
+    bundle = {"prompts": list(ALL_PROMPTS),
+              "clip": [r + [CLIP_EOS] * (width - len(r)) for r in rows],
+              "clipseg": [[49406, int(rng.integers(1, 49406)), CLIP_EOS]]}
+    ids = base / "prompt_ids.json"
+    ids.write_text(json.dumps(bundle))
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    serve = _serve_weights(card, base / "cnn", probe)["COVID"]
+    sizes = []
+    for name, module, sub, suffix in (
+            ("CLIP", CLIPModule, "classification_models", "best_acc"),
+            ("CLIPSeg", CLIPSegModel, "segmentation_models", "best_loss")):
+        with torch.device("cuda"):
+            model = init_weights(module(), gen)
+        sd = {k: v.cpu() for k, v in model.state_dict().items()}
+        if name == "CLIP":
+            feats = clip_text_features(sd, bundle["clip"])
+            others, _ = torch.linalg.qr(feats[1:].T)
+            covid = feats[0] - others @ (others.T @ feats[0])
+            sd["vision_model.post_layernorm.bias"][0] = 30.0
+            sd["visual_projection.weight"][:, 0] = (10.0 * covid / covid.norm()).cpu()
+        path = base / "clip" / sub / f"{name}_{suffix}.pt"
+        path.parent.mkdir(parents=True)
+        torch.save(sd, path)
+        os.link(path, serve / sub / path.name)
+        sizes.append(path.stat().st_size)
+        del model, sd
+    print(f"[{card}] clip path weights: CLIP ViT-B/32 and CLIPSeg rd64-refined float32 "
+          f"(init_weights, seed {SEED}; CLIP's image side biased to COVID's prompt "
+          f"feature), {sum(sizes) / 1e9:.3f} GB of .pt; prompt ids {bundle['clip']} and "
+          f"{bundle['clipseg']} (arbitrary, eos {CLIP_EOS})")
+    return {"eval": base / "clip", "serve": serve, "ids": ids}
+
+
+def _clip_eval(card: str, root: Path) -> None:
+    """`medseg eval` with CLIP and CLIPSeg: test_all_models over a synthetic
+    256px split (the other eight models have no weights), with no B2
+    launch (the harness resizes floats to 224 and 352), -> both CSVs, read
+    back; the prompt features and CLIPSeg's embedding on the card within
+    1e-5 of the CPU's."""
+    from medseg_tpu_torch.core.config import EvalConfig
+    from medseg_tpu_torch.data.loader import BatchLoader
+    from medseg_tpu_torch.data.synthetic import synthetic_cls, synthetic_seg
+    from medseg_tpu_torch.eval.csv_io import save_results_to_csv
+    from medseg_tpu_torch.eval.harness import load_model_bundle, print_summary, test_all_models
+
+    loaders = [BatchLoader(make(n=CLIP_EVAL_SAMPLES, img_size=SIZE, seed=SEED), EVAL_BATCH,
+                           shuffle=False) for make in (synthetic_cls, synthetic_seg)]
+    logs = []
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    results = test_all_models(*loaders, EvalConfig(batch_size=EVAL_BATCH,
+                                                   weights_root=str(root)), log=logs.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    read_counts("clip eval (the harness's CLIP branches launch no B2)", {})
+    if sorted(results) != ["CLIP", "CLIPSeg"]:
+        fail(f"clip eval: results for {list(results)}; log {logs}")
+    if results["CLIP"]["confusion_matrix"].sum() != CLIP_EVAL_SAMPLES or not all(
+            0.0 <= float(v) <= 100.0 for v in results["CLIPSeg"].values()):
+        fail(f"clip eval: {results}")
+    print_summary(results)
+    csvs = [root / "results" / f for f in ("cls.csv", "seg.csv")]
+    save_results_to_csv(results, *map(str, csvs), log=lambda *_: None)
+    for path, name in zip(csvs, ("CLIP", "CLIPSeg")):
+        with open(path, newline="") as f:
+            rows = list(csv.DictReader(f))
+        got = {r.pop("Model"): {k: float(v) for k, v in r.items()} for r in rows}
+        if list(got) != [name] or any(results[name][k] != v for k, v in got[name].items()):
+            fail(f"clip eval: {path.name} reads back as {rows}")
+    errs = {}
+    for name, seg, key in (("CLIP", False, "text_features"), ("CLIPSeg", True, "cond")):
+        on_card = load_model_bundle(name, str(root), seg)[1][key]
+        on_cpu = load_model_bundle(name, str(root), seg, device="cpu")[1][key]
+        errs[key] = (on_card.cpu() - on_cpu).abs().max().item()
+        if not errs[key] <= 1e-5 or on_card.device.type != "cuda":
+            fail(f"clip eval: {name}'s {key} on the card are {errs[key]} from the CPU's")
+    print(f"[{card}] clip eval, CLIP and CLIPSeg .pt through test_all_models ("
+          f"{CLIP_EVAL_SAMPLES} images at {SIZE}px in batches of {EVAL_BATCH}, bicubic "
+          f"to 224 and 352 in float32): {wall:.3f} s (host clock, text towers and "
+          f"loading included), 0 B2 launches; CLIP accuracy "
+          f"{results['CLIP']['accuracy']:.2f}%, CLIPSeg Dice {results['CLIPSeg']['dice']:.2f}%;"
+          f" both CSVs read back; card vs CPU: text_features max_abs_err="
+          f"{errs['text_features']:.3e}, cond max_abs_err={errs['cond']:.3e} (tol 1e-5)")
+
+
+def _record_groups(pipe) -> list:
+    """Wrap pipe.process_batch to record each group's predictions."""
+    groups, process = [], pipe.process_batch
+
+    def recording(images, segmentation_model_name, overlay_opacity=0.5):
+        out = process(images, segmentation_model_name, overlay_opacity)
+        groups.append([o[0] for o in out])
+        return out
+
+    pipe.process_batch = recording
+    return groups
+
+
+def _clip_serve_gates(card: str, server, port: int, pair, requests) -> int:
+    """One server's gates: each of the 8 requests alone, then a burst of 8;
+    B2 launches exactly 1 a group + 1 for each group with a COVID
+    prediction, counted from the groups' predictions (both classifiers are
+    COVID-forced, so 2 a group), no new batch shape after warmup, overlays
+    at each request's size for COVID and none otherwise, /health names the
+    pair.  Returns the B2 launches."""
+    from medseg_tpu_torch.infer.server import _decode_image, _encode_png
+
+    pipe = server.pipeline
+    groups = _record_groups(pipe)
+    seen = (set(pipe._cls[1].seen_batches), set(pipe._seg[1].seen_batches))
+    bodies = [json.dumps({"image": _encode_png(a), "classification_model": pair[0],
+                          "segmentation_model": pair[1]}).encode() for a in requests]
+    batches0 = server.stats["batches"]
+    torch.cuda.synchronize()
+    reset_counts()
+    outs = [_post(port, b) for b in bodies] + _burst(port, bodies)
+    torch.cuda.synchronize()
+    want = sum(1 + ("COVID" in g) for g in groups)
+    read_counts(f"clip serve ({pair[0]} + {pair[1]})", {"fused_photometric": want})
+    if len(groups) != server.stats["batches"] - batches0 or want != 2 * len(groups):
+        fail(f"clip serve ({pair}): groups {groups}, batches "
+             f"{server.stats['batches'] - batches0}")
+    after = (pipe._cls[1].seen_batches, pipe._seg[1].seen_batches)
+    if after != seen or server.stats["max_batch"] < 2:
+        fail(f"clip serve ({pair}): batch shapes {seen} -> {after}, max_batch "
+             f"{server.stats['max_batch']}")
+    for out, img in zip(outs, requests + requests):
+        covid = out["prediction"] == "COVID"
+        shape = _decode_image(out["overlay"]).shape if out["overlay"] else None
+        if shape != (img.shape if covid else None):
+            fail(f"clip serve ({pair}): {out['prediction']} with overlay {shape} for a "
+                 f"{img.shape} request")
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/health", timeout=30) as resp:
+        health = json.loads(resp.read())["models"]
+    if health != {"classification": pair[0], "segmentation": pair[1]}:
+        fail(f"clip serve: /health says {health}")
+    covid = sum(o["prediction"] == "COVID" for o in outs)
+    print(f"[{card}] clip serve, {pair[0]} + {pair[1]}: {len(outs)} requests ({len(bodies)} "
+          f"one at a time, then a burst) in {len(groups)} groups, largest "
+          f"{server.stats['max_batch']}, {covid} COVID; B2 launches {want} = 1 a group + 1 "
+          f"for each of the {want - len(groups)} groups with COVID; grids "
+          f"{sorted({s[1] for s in after[0]})} and {sorted({s[1] for s in after[1]})}; the "
+          f"burst met no new batch shape; overlays at each request's size")
+    return want
+
+
+def _clip_card_against_cpu(card: str, pipe, root: Path, arrays) -> None:
+    """The card's CLIP + CLIPSeg Pipeline (TF32 off) against the CPU's on the
+    8 images: the bicubic uint8 grids equal except off by 1 at rounding
+    ties (the CPU's float value within 1e-3 of a .5), CLIP's logits within
+    1e-3*max(1, |logit|max) and CLIPSeg's probabilities within 1e-3 on the
+    same grid, and the same classes wherever the CPU's top two logits are
+    further apart than twice that."""
+    from medseg_tpu_torch.core.config import EvalConfig
+    from medseg_tpu_torch.infer.pipeline import Pipeline
+    from medseg_tpu_torch.ops.image import resize_jax
+
+    cpu = torch.device("cpu")
+    cpu_pipe = Pipeline(EvalConfig(weights_root=str(root)), device="cpu")
+    cpu_pipe._load_models("CLIP", "CLIPSeg")
+    report, outs = [], {}
+    for key in ("_cls", "_seg"):
+        entry, cpu_entry = getattr(pipe, key), getattr(cpu_pipe, key)
+        size, method = Pipeline.input_grid(entry[0])
+        grid = Pipeline._grid_batch(arrays, size, pipe.device, method).cpu()
+        cpu_grid = Pipeline._grid_batch(arrays, size, cpu, method)
+        diff = (grid.int() - cpu_grid.int()).abs()
+        raw = torch.cat([resize_jax(torch.from_numpy(a[None]), size, size, method)
+                         for a in arrays])
+        tie = (raw - raw.floor() - 0.5).abs() < 1e-3
+        if diff.max() > 1 or not tie[diff > 0].all():
+            fail(f"clip card vs CPU: the {size} grids differ by up to {diff.max()} off ties")
+        out = pipe._forward(entry[1], cpu_grid.to(pipe.device))
+        out_cpu = cpu_pipe._forward(cpu_entry[1], cpu_grid)
+        err = float(np.abs(out - out_cpu).max())
+        tol = 1e-3 * max(1.0, float(np.abs(out_cpu).max())) if key == "_cls" else 1e-3
+        outs[key] = (out, out_cpu, tol)
+        report.append(f"{entry[0]} grid {size}: {int((diff > 0).sum())} of {diff.numel()} "
+                      f"uint8 values differ (by 1, at ties); max_abs_err={err:.3e} tol={tol:.3e}")
+        if not err <= tol:
+            fail(f"clip card vs CPU, {entry[0]}: max_abs_err {err} > {tol}")
+    logits, logits_cpu, tol = outs["_cls"]
+    top2 = np.sort(logits_cpu, axis=-1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > 2 * tol
+    same = logits.argmax(-1) == logits_cpu.argmax(-1)
+    if not same[clear].all():
+        fail(f"clip card vs CPU: classes {logits.argmax(-1)} vs {logits_cpu.argmax(-1)}")
+    print(f"[{card}] clip card vs CPU Pipeline (TF32 off), {len(arrays)} images "
+          f"{sorted({a.shape[:2] for a in arrays})}: " + "; ".join(report)
+          + f"; classes equal on the {int(clear.sum())} images whose top two CPU logits "
+          f"are more than 2*tol apart")
+
+
+def _vit_flops(batch: int, tokens: int, layers: int, hidden: int = 768,
+               mlp: int = 3072) -> tuple:
+    """(GEMM, SDPA) flops of `layers` ViT encoder layers: q, k, v, out and the
+    two MLP projections; QK^T and PV."""
+    gemm = 2 * batch * tokens * layers * (4 * hidden * hidden + 2 * hidden * mlp)
+    return gemm, 4 * batch * tokens * tokens * hidden * layers
+
+
+def _event_ms(fn, reps: int = 20) -> float:
+    """Milliseconds a call of fn() by CUDA events around `reps` calls after
+    three warm-up calls: for operations of 0.05 ms and more, whose launches
+    take less host time than the card takes to run them; it needs no
+    profiler session, which late in a run may record nothing."""
+    for _ in range(3):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _clip_device_split(card: str, pipe, requests) -> None:
+    """Readings: the device time of one B=8 CLIP and CLIPSeg forward (the
+    Pipeline's, B2 included) split into GEMMs, SDPA, LayerNorm, B2 and the
+    rest, the GEMMs' TFLOP/s from the shapes, the patch embedding's GEMM
+    beside cuDNN's conv of the same weights, and peak memory."""
+    import torch.nn.functional as F
+
+    from medseg_tpu_torch.infer.pipeline import Pipeline
+    from medseg_tpu_torch.ops.clip_prep import clip_preprocess
+
+    kinds = (("GEMM", ("gemm",)), ("SDPA", ("attention", "fmha", "flash", "softmax")),
+             ("LayerNorm", ("layer_norm",)), ("B2", ("photometric_kernel",)))
+    for key in ("_cls", "_seg"):
+        name, fn = getattr(pipe, key)
+        model = fn.model
+        decoder = getattr(model, "decoder", None)
+        tower = (model.clip if decoder is not None else model).vision_model
+        cfg = tower.cfg
+        layers = (max(model.extract_layers) + 1 if decoder is not None else cfg.num_layers)
+        size, method = Pipeline.input_grid(name)
+        grid = Pipeline._grid_batch(requests, size, pipe.device, method)
+        parts = {k: [] for k, _ in kinds}
+        parts["rest"], totals, top = [], [], {}
+        for events in _sessions(lambda: fn(grid), 5):
+            split = dict.fromkeys(parts, 0.0)
+            for e in events:
+                kind = next((k for k, words in kinds
+                             if any(w in e.key.lower() for w in words)), "rest")
+                split[kind] += e.device_time_total / 5 / 1e3
+                top[e.key[:50]] = e.device_time_total / 5 / 1e3
+            for k, v in split.items():
+                parts[k].append(v)
+            totals.append(sum(split.values()))
+        ms = {k: float(np.median(v)) for k, v in parts.items()}
+        b, p, hidden = grid.shape[0], cfg.patch_size, cfg.hidden_size
+        tokens = (size // p) ** 2 + 1
+        gemm, sdpa = _vit_flops(b, tokens, layers, hidden, cfg.intermediate_size)
+        patch = 2 * b * (tokens - 1) * hidden * 3 * p * p
+        gemm += patch
+        if decoder is not None:  # the reduces and the decoder's layers
+            width = decoder.film_mul.out_features
+            depth = len(decoder.layers)
+            gemm += (depth * 2 * b * tokens * hidden * width + _vit_flops(
+                b, tokens, depth, width, decoder.layers[0].mlp.fc1.out_features)[0])
+        x = clip_preprocess(grid, size)
+        emb = tower.embeddings
+        weight = emb.patch_embedding.weight
+        nchw = x.permute(0, 3, 1, 2)
+        with torch.inference_mode():
+            patch_ms = _event_ms(lambda: emb.patches(x))
+            conv_ms = _event_ms(lambda: F.conv2d(nchw, weight, stride=p))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn(grid)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        total = float(np.median(totals))
+        costly = sorted(top.items(), key=lambda kv: -kv[1])[:4]
+        print(f"[{card}] clip reading, one B={b} {name} forward ({size}^2, {layers} vision "
+              f"layers, B2 + model{' + sigmoid' if key == '_seg' else ''}, float32, TF32 "
+              f"off) by device time: {total:.4f} ms (sessions "
+              f"{[round(t, 4) for t in totals]}); "
+              + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+              + f" ms; GEMMs {gemm / 1e9:.1f} GFLOP from the shapes, "
+              f"{gemm / ms['GEMM'] / 1e9:.1f} TFLOP/s ({gemm / ms['GEMM'] / 1e9 / 67:.0%} of "
+              f"the 67 TFLOP/s float32 rate outside the tensor cores); SDPA "
+              f"{sdpa / 1e9:.1f} GFLOP; the patch embedding as a GEMM {patch_ms:.4f} ms "
+              f"against cuDNN's conv of the same weights {conv_ms:.4f} ms (CUDA events, "
+              f"20 calls); peak memory "
+              f"{peak / 2**20:.1f} MiB above the {base / 2**30:.2f} GiB held; costliest "
+              f"operations (ms): {[(k, round(v, 4)) for k, v in costly]}")
+
+
+def _clip_latency(card: str, server, port: int, requests) -> None:
+    """Readings: p50/p99 of CLIP_REQUESTS sequential 299x299 requests
+    through CLIP + CLIPSeg over loopback, and one request's stages by host
+    clock (medians of 10)."""
+    from medseg_tpu_torch.infer.overlay import red_overlay
+    from medseg_tpu_torch.infer.pipeline import Pipeline
+    from medseg_tpu_torch.infer.server import _decode_image, _encode_png
+
+    img = requests[0]
+    body = json.dumps({"image": _encode_png(img), "classification_model": "CLIP",
+                       "segmentation_model": "CLIPSeg"}).encode()
+    lat = []
+    for _ in range(CLIP_REQUESTS):
+        t0 = time.perf_counter()
+        _post(port, body)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    p50, p99 = np.percentile(lat, [50, 99])
+    pipe, dev = server.pipeline, server.pipeline.device
+    payload = json.loads(body)["image"]
+    stages = {}
+
+    def stage(name, fn):
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        stages[name] = float(np.median(times))
+        return out
+
+    cls_size, seg_size = (Pipeline.input_grid(n)[0] for n in ("CLIP", "CLIPSeg"))
+    with server.lock:
+        stage("decode", lambda: _decode_image(payload))
+        g_cls = stage(f"_to_grid {cls_size} bicubic",
+                      lambda: Pipeline._to_grid(img[None], cls_size, dev, "bicubic"))
+        stage("classify (B2 + CLIP + read)", lambda: pipe._forward(pipe._cls[1], g_cls))
+        g_seg = stage(f"_to_grid {seg_size} bicubic",
+                      lambda: Pipeline._to_grid(img[None], seg_size, dev, "bicubic"))
+        probs = stage("segment (B2 + CLIPSeg + sigmoid + read)",
+                      lambda: pipe._forward(pipe._seg[1], g_seg)[0, :, :, 0])
+        mask = (probs > 0.5).astype(np.uint8) * 255
+        stage("overlay + PNG encode", lambda: _encode_png(red_overlay(img, mask)))
+    print(f"[{card}] clip reading, {CLIP_REQUESTS} sequential 299x299 requests through "
+          f"CLIP + CLIPSeg over loopback (host clock, TF32 off): p50 {p50:.3f} ms, p99 "
+          f"{p99:.3f} ms, max {max(lat):.3f} ms; one request's stages (median of 10): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items())
+          + f"; sum {sum(stages.values()):.3f} ms")
+
+
+def run_clip_path(card: str) -> int:
+    """CLIP and CLIPSeg at full width, float32: the eval gate (_clip_eval),
+    then an InferenceServer over loopback for each of CLIP_PAIRS, warmed up
+    (_clip_serve_gates), the card's CLIP + CLIPSeg Pipeline against the
+    CPU's (_clip_card_against_cpu), and the readings.  Returns the B2
+    launches of its servers."""
+    from medseg_tpu_torch.core.config import EvalConfig
+    from medseg_tpu_torch.infer.pipeline import Pipeline
+    from medseg_tpu_torch.infer.server import InferenceServer
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 10)
+    requests = [_xray_like(rng, h, w) for h, w in CLIP_SHAPES]
+    launches = 0
+    env = os.environ.get("MEDSEG_PROMPT_IDS")
+    (HERE / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        t0 = time.perf_counter()
+        roots = _clip_weights(card, Path(tmp), Pipeline._grid_batch(requests, SIZE, dev))
+        os.environ["MEDSEG_PROMPT_IDS"] = str(roots["ids"])
+        httpds = []
+        try:
+            t1 = time.perf_counter()
+            _clip_eval(card, roots["eval"])
+            t2 = time.perf_counter()
+            servers = {}
+            for pair in CLIP_PAIRS:
+                server = InferenceServer(EvalConfig(weights_root=str(roots["serve"])))
+                server.warmup(*pair, log=lambda *_: None)
+                httpd, port = server.start_background()
+                httpds.append(httpd)
+                servers[pair] = (server, port)
+            t3 = time.perf_counter()
+            for pair, (server, port) in servers.items():
+                launches += _clip_serve_gates(card, server, port, pair, requests)
+            server, port = servers[CLIP_PAIRS[0]]
+            with server.lock:
+                _clip_card_against_cpu(card, server.pipeline, roots["serve"], requests)
+                _clip_device_split(card, server.pipeline, requests)
+            _clip_latency(card, server, port, requests)
+            print(f"[{card}] clip path: weights {t1 - t0:.1f} s, eval {t2 - t1:.1f} s, three "
+                  f"servers loaded and warmed {t3 - t2:.1f} s, gates and readings "
+                  f"{time.perf_counter() - t3:.1f} s")
+        finally:
+            for httpd in httpds:
+                httpd.shutdown()
+                httpd.server_close()
+            if env is None:
+                os.environ.pop("MEDSEG_PROMPT_IDS", None)
+            else:
+                os.environ["MEDSEG_PROMPT_IDS"] = env
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2622,6 +3106,7 @@ def main() -> int:
                "fused_photometric": check_photometric_kernel(card),
                "stem_conv_pool": check_stem_kernel(card)}
     _zoo_kernel_checks(card)
+    _clip_kernel_checks(card)
     # each kernel's launches on the path that runs it at the recorded shape
     launches = {"warp_affine": run_main_path(card)["warp_affine"],
                 "fused_photometric": run_eval_path(card)["fused_photometric"],
@@ -2629,11 +3114,14 @@ def main() -> int:
     print(f"[{card}] kernel checks and the aug+infer, eval and stem paths: "
           f"{time.perf_counter() - t0:.1f} s")
     paths = {"train": run_train_path, "seg": run_seg_path, "serve": run_serve_path,
-             "zoo": run_zoo_path}
+             "clip": run_clip_path, "zoo": run_zoo_path}
+    returned = {}
     for path, run in paths.items():
         t0 = time.perf_counter()
-        run(card)
+        returned[path] = run(card)
         print(f"[{card}] {path} path: {time.perf_counter() - t0:.1f} s")
+    # B2's count: the eval path's launches and the clip path's servers'
+    launches["fused_photometric"] += returned["clip"]
 
     modules = {"warp_affine": warp_kernel, "fused_photometric": photometric,
                "stem_conv_pool": stem_kernel}

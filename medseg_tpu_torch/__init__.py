@@ -10,9 +10,10 @@ caller passes device="cpu"; without a card they raise.  Every hand-written
 kernel (ops/kernels/) launches for CUDA tensors and uses its plain PyTorch
 version only for CPU tensors.
 
-The slice ported so far is the fused aug+infer path: packed uint8 loader ->
-augment_batch (warp kernel with the photometric epilogue) -> ResNet bf16
-forward -> argmax -> classification_metrics.
+Ported so far: the fused aug+infer path, the eval harness, the fused stem,
+the classification and segmentation trainers, the inference cascade
+(Pipeline, server, batch predict) and the whole ten-model zoo, CLIP and
+CLIPSeg included (ROADMAP.md, queue A).
 """
 
 __version__ = "0.1.0"

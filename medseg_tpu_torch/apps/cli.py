@@ -6,13 +6,17 @@
 Counterpart of `_cmd_serve` and `_cmd_predict` in medseg_tpu/apps/cli.py,
 with the same arguments and --weights-root (the JAX CLI's other shared
 paths serve its other subcommands).  Both run on the card unless
-`--device cpu` is passed.  The other subcommands wait for ROADMAP A.15.
+`--device cpu` is passed, and serve every model of the zoo.
+`--prompt-ids PATH` names the JSON bundle of CLIP's and CLIPSeg's prompt
+token ids (it sets $MEDSEG_PROMPT_IDS, interop/prompts.py).  The other
+subcommands wait for ROADMAP A.15.
 """
 
 from __future__ import annotations
 
 import argparse
 import glob
+import os
 
 from medseg_tpu_torch.core.config import EvalConfig
 
@@ -51,6 +55,9 @@ def main(argv=None):
         sp.add_argument("--device", default=None,
                         help="torch device (default: the card; 'cpu' to run "
                              "on the CPU)")
+        sp.add_argument("--prompt-ids", default=None,
+                        help="JSON bundle of CLIP's and CLIPSeg's prompt token "
+                             "ids (sets $MEDSEG_PROMPT_IDS)")
         return sp
 
     sp = add("predict", _cmd_predict)
@@ -67,6 +74,8 @@ def main(argv=None):
                          "startup")
 
     args = p.parse_args(argv)
+    if args.prompt_ids:
+        os.environ["MEDSEG_PROMPT_IDS"] = args.prompt_ids
     args.fn(args)
 
 

@@ -16,6 +16,22 @@ IMG_SIZE: int = 256
 IMAGENET_MEAN: tuple[float, float, float] = (0.485, 0.456, 0.406)
 IMAGENET_STD: tuple[float, float, float] = (0.229, 0.224, 0.225)
 
+# CLIP preprocessing constants (openai/clip-vit-base-patch32 processor).
+CLIP_IMG_SIZE: int = 224
+CLIP_MEAN: tuple[float, float, float] = (0.48145466, 0.4578275, 0.40821073)
+CLIP_STD: tuple[float, float, float] = (0.26862954, 0.26130258, 0.27577711)
+# CLIPSeg (CIDAS/clipseg-rd64-refined) operates on a 352x352 grid.
+CLIPSEG_IMG_SIZE: int = 352
+
+# Default text prompts (reference models/classification_models/CLIP.py:10-14).
+DEFAULT_TEXT_PROMPTS: tuple[str, str, str] = (
+    "a chest x-ray image showing COVID-19 pneumonia with ground-glass opacities",
+    "a healthy normal chest x-ray image with clear lung fields",
+    "a chest x-ray image showing non-COVID pneumonia infiltrates",
+)
+# Default segmentation prompt (reference models/segmentation_models/CLIPSeg.py:10).
+DEFAULT_SEG_TEXT_PROMPT: str = "lungs"
+
 
 @dataclasses.dataclass(frozen=True)
 class AugmentConfig:

@@ -1,25 +1,31 @@
 """Evaluation harness: test every model on the held-out split.
 
 Counterpart of medseg_tpu/eval/harness.py (reference utils/tester.py:197-805):
-each batch is preprocessed on the card by one launch of the photometric
-kernel (ops/augment.preprocess_eval_batch; a segmentation mask's /255 is
-plain torch ops, as in the JAX package) and run through the model.  A
-classifier's argmax predictions, or a segmentation model's per-sample
-metric vectors (sigmoid, threshold, eval/metrics.py), stay on the device
-until the split ends and are read once; `classification_metrics` or
-`average_segmentation_metrics` then computes the reference's figures.  Log
-lines, the summary tables and skip-on-missing-weights follow the JAX
-package word for word.
+each batch is preprocessed on the card and run through the model.  The CNNs'
+batches are one launch of the photometric kernel each
+(ops/augment.preprocess_eval_batch); CLIP's and CLIPSeg's are
+ops/clip_prep.clip_preprocess from the packed 256 batch, a bicubic resize
+to 224 or 352 in float32 and CLIP's normalization, plain torch operations
+with no kernel, as the JAX package leaves them to XLA.  A segmentation
+mask's /255 is plain torch operations, as in the JAX package.  CLIPSeg's
+probabilities (sigmoid on its 352 grid) are resized bilinearly to the
+mask's grid as jax.image.resize does.  A classifier's argmax predictions,
+or a segmentation model's per-sample metric vectors (sigmoid, threshold,
+eval/metrics.py), stay on the device until the split ends and are read
+once; `classification_metrics` or `average_segmentation_metrics` then
+computes the reference's figures.  Log lines, the summary tables and
+skip-on-missing-weights follow the JAX package word for word.
 
 Differences from the JAX package:
 - weights come only from the reference's torch `.pt` state dicts
   (`{weights_root}/classification_models/{name}_best_acc.pt`,
   `{weights_root}/segmentation_models/{name}_best_loss.pt`), which load
   into the port's models, named as the reference's, with strict=True; the
-  port's trainer writes the same files (train/checkpoint.py);
-- models the port lacks raise NotImplementedError naming their ROADMAP
-  item (PENDING_CLS_MODELS, PENDING_SEG_MODELS), as does the mesh branch
-  (ROADMAP A.14); CLIPSeg's branch comes with it (A.12);
+  port's trainer writes the same files (train/checkpoint.py).  CLIP's and
+  CLIPSeg's extra inputs (prompt features, conditional embedding) come
+  from the checkpoint's own text tower and the prompt ids
+  (interop/prompts.py), computed on the eval device;
+- the mesh branch raises NotImplementedError naming ROADMAP A.14;
 - no retry: `_evaluate_with_retry` guarded against a relay the card does not
   use, so test_all_models calls evaluate_model directly.
 """
@@ -27,54 +33,73 @@ Differences from the JAX package:
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from medseg_tpu_torch.core import config as C
 from medseg_tpu_torch.core.config import CLASSES, EvalConfig
 from medseg_tpu_torch.core.device import DeviceLike, resolve_device
 from medseg_tpu_torch.core.registry import get_model
 from medseg_tpu_torch.data.loader import BatchLoader
 from medseg_tpu_torch.eval import metrics as M
 from medseg_tpu_torch.ops.augment import preprocess_eval_batch
+from medseg_tpu_torch.ops.clip_prep import clip_preprocess
+from medseg_tpu_torch.ops.image import resize_jax
 
 CLS_MODELS = ("ResNet18", "ResNet50", "VGG16", "VGG19", "CLIP")
 SEG_MODELS = ("ResNetUnet", "AttentionUNet", "R2Unet", "R2AttUnet", "CLIPSeg")
 _SEG_NAMES = {m.lower() for m in SEG_MODELS}
-# models the port lacks yet, by the ROADMAP item that brings them
-PENDING_CLS_MODELS = {"clip": "A.12"}
-PENDING_SEG_MODELS = {"clipseg": "A.12"}
+
+Bundle = Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]
 
 
-def refuse_pending(name: str, what: str) -> None:
-    """NotImplementedError for a model the port lacks yet, naming its item."""
-    for task, pending in (("classification", PENDING_CLS_MODELS),
-                          ("segmentation", PENDING_SEG_MODELS)):
-        item = pending.get(name.lower())
-        if item is not None:
-            raise NotImplementedError(f"{what} {name} ({task}) waits for its "
-                                      f"port (ROADMAP {item})")
-
-
-def load_model_bundle(name: str, weights_root: str,
-                      seg: bool) -> Optional[Dict[str, torch.Tensor]]:
-    """The reference's torch state dict for `name`, or None when it is
-    missing.  The port's bundle is the state dict alone: the CLIP models'
-    extra inputs wait for ROADMAP A.12."""
+def load_model_bundle(name: str, weights_root: str, seg: bool,
+                      device: DeviceLike = None) -> Optional[Bundle]:
+    """(state_dict, extra_inputs) from the reference's torch .pt for `name`,
+    or None when it is missing.  For CLIP and CLIPSeg, extra_inputs holds
+    the prompt features ("text_features") or the conditional embedding
+    ("cond"), computed on `device` (the card unless "cpu") from the
+    checkpoint's own text tower and the prompt ids (tester.py:559-565,
+    642-648), and the state dict is the image side's (CLIP) or the full
+    model's (CLIPSeg); the other models have no extra inputs."""
     sub = "segmentation_models" if seg else "classification_models"
     suffix = "best_loss" if seg else "best_acc"
     pt_path = Path(weights_root) / sub / f"{name}_{suffix}.pt"
     if not pt_path.exists():
         return None
-    return torch.load(str(pt_path), map_location="cpu", weights_only=True)
+    sd = torch.load(str(pt_path), map_location="cpu", weights_only=True)
+    lname = name.lower()
+    if lname == "clip":
+        from medseg_tpu_torch.interop.text_features import clip_bundle_from_torch_sd
+
+        sd, tf = clip_bundle_from_torch_sd(sd, device=device)
+        return sd, {"text_features": tf}
+    if lname == "clipseg":
+        from medseg_tpu_torch.interop.text_features import clipseg_bundle_from_torch_sd
+
+        sd, cond = clipseg_bundle_from_torch_sd(sd, device=device)
+        return sd, {"cond": cond}
+    return sd, {}
 
 
-def _eval_classification(model, loader: BatchLoader, device: torch.device):
+def _clip_grid(name: str) -> Optional[int]:
+    """CLIP's or CLIPSeg's input grid (CLIP_IMG_SIZE, CLIPSEG_IMG_SIZE, read
+    at call time), or None for the other models."""
+    return {"clip": C.CLIP_IMG_SIZE, "clipseg": C.CLIPSEG_IMG_SIZE}.get(name.lower())
+
+
+def _eval_classification(model, loader: BatchLoader, device: torch.device,
+                         extra: Dict[str, torch.Tensor], clip_size: Optional[int]):
     preds, labels = [], []
     with torch.inference_mode():
         for (images, targets), n_real in zip(loader, loader.real_counts()):
-            x, _ = preprocess_eval_batch(images.to(device))
-            p = model(x).argmax(-1)
+            images = images.to(device)
+            if clip_size is None:
+                x, _ = preprocess_eval_batch(images)
+            else:  # bicubic resize + CLIP normalize (tester.py:341-371)
+                x = clip_preprocess(images, clip_size)
+            p = model(x, **extra).argmax(-1)
             preds.append(p[:n_real])  # trim pad_to_multiple padding
             labels.append(targets[:n_real])
     # one fetch for the whole split: a per-batch fetch would wait on the card
@@ -103,12 +128,23 @@ def _log_classification(name: str, res: Dict, log: Callable[[str], None]):
 
 
 def _eval_segmentation(model, loader: BatchLoader, device: torch.device,
-                       threshold: float):
+                       threshold: float, extra: Dict[str, torch.Tensor],
+                       clip_size: Optional[int]):
     acc: Dict[str, list] = {}
     with torch.inference_mode():
         for (images, masks), n_real in zip(loader, loader.real_counts()):
-            x, m = preprocess_eval_batch(images.to(device), masks.to(device))
-            probs = torch.sigmoid(model(x).to(torch.float32))
+            images, masks = images.to(device), masks.to(device)
+            if clip_size is None:
+                x, m = preprocess_eval_batch(images, masks)
+                probs = torch.sigmoid(model(x, **extra).to(torch.float32))
+            else:
+                # CLIPSeg (tester.py:430-487): CLIP preprocess at 352, sigmoid
+                # on that grid, bilinear resize down to the mask's grid; the
+                # mask's /255 alone, with no kernel launch for the image half
+                m = masks[..., None].to(torch.float32) / 255.0
+                logits = model(clip_preprocess(images, clip_size), **extra)
+                probs = torch.sigmoid(logits.to(torch.float32))[..., None]
+                probs = resize_jax(probs, m.shape[1], m.shape[2], "bilinear")
             for k, v in M.segmentation_metrics_batched(probs, m, threshold).items():
                 acc.setdefault(k, []).append(v[:n_real])  # trim padding
     # one fetch for the whole split (see _eval_classification)
@@ -130,36 +166,44 @@ def _log_segmentation(name: str, res: Dict, log: Callable[[str], None]):
 def evaluate_model(name: str, loader: BatchLoader,
                    state_dict: Optional[Dict[str, torch.Tensor]] = None,
                    cfg: EvalConfig = EvalConfig(), *,
+                   extra_inputs: Optional[Dict[str, torch.Tensor]] = None,
                    log: Callable[[str], None] = print, mesh=None,
                    device: DeviceLike = None) -> Optional[Dict]:
-    """Evaluate one model; loads its weights if `state_dict` is None and
-    returns None (after a warning) when they are missing.
+    """Evaluate one model; loads its weights (and CLIP's or CLIPSeg's extra
+    inputs) if `state_dict` is None, and returns None (after a warning) when
+    they are missing.  extra_inputs the caller passes override the loaded
+    ones; with an explicit state_dict, CLIP needs "text_features" and
+    CLIPSeg "cond" there.
 
     The model is built in the factory's default dtype (float32) on `device`
     (the card unless device="cpu"), and each batch is moved there."""
     device = resolve_device(device)
     seg = name.lower() in _SEG_NAMES
     if state_dict is None:
-        state_dict = load_model_bundle(name, cfg.weights_root, seg)
-        if state_dict is None:
+        bundle = load_model_bundle(name, cfg.weights_root, seg, device)
+        if bundle is None:
             log(f"\n[WARNING] Weights not found for {name}")
             log(f"Skipping {name}...")
             return None
+        state_dict, auto_extra = bundle
+        # caller-supplied extras override the checkpoint's own
+        extra_inputs = {**auto_extra, **(extra_inputs or {})}
     if mesh is not None:
         raise NotImplementedError("sharded eval waits for the data-parallel "
                                   "port (ROADMAP A.14)")
-    refuse_pending(name, "evaluating")
     model = get_model(name)["factory"](device=device)
     model.load_state_dict(state_dict, strict=True)
     model.eval()
+    extra = {k: torch.as_tensor(v).to(device) for k, v in (extra_inputs or {}).items()}
     log(f"\n{'=' * 60}")
     log(f"Testing {'Segmentation' if seg else 'Classification'} Model: {name}")
     log(f"{'=' * 60}")
     if seg:
-        res = _eval_segmentation(model, loader, device, cfg.threshold)
+        res = _eval_segmentation(model, loader, device, cfg.threshold, extra,
+                                 _clip_grid(name))
         _log_segmentation(name, res, log)
     else:
-        res = _eval_classification(model, loader, device)
+        res = _eval_classification(model, loader, device, extra, _clip_grid(name))
         _log_classification(name, res, log)
     log("=" * 60 + "\n")
     return res
@@ -168,19 +212,23 @@ def evaluate_model(name: str, loader: BatchLoader,
 def test_all_models(cls_loader: Optional[BatchLoader],
                     seg_loader: Optional[BatchLoader],
                     cfg: EvalConfig = EvalConfig(), *,
+                    extra_inputs: Optional[Dict[str, dict]] = None,
                     log: Callable[[str], None] = print, mesh=None,
                     device: DeviceLike = None) -> Dict[str, Dict]:
     """Evaluate the whole zoo (tester.py:513-735): models without weights are
     skipped, and a model that fails is logged and skipped; returns
-    {model: metrics}.  Without a card it raises before the first model
-    unless device="cpu"."""
+    {model: metrics}.  extra_inputs: {model name: its extra inputs}, each
+    overriding what its checkpoint gives.  Without a card it raises before
+    the first model unless device="cpu"."""
     device = resolve_device(device)
     results: Dict[str, Dict] = {}
+    extra_inputs = extra_inputs or {}
 
     def run_family(loader, names):
         for name in names:
             try:
-                res = evaluate_model(name, loader, None, cfg, log=log,
+                res = evaluate_model(name, loader, None, cfg,
+                                     extra_inputs=extra_inputs.get(name), log=log,
                                      mesh=mesh, device=device)
                 if res is not None:
                     results[name] = res

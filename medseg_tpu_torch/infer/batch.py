@@ -5,10 +5,12 @@ original decodes once (cv2, else PIL, as the JAX package's
 data/packed.py:32-43) and is resized straight to each
 model's serving grid (Pipeline.input_grid and Pipeline._to_grid, so
 `predict` is pixel-consistent with `serve`); every batch runs one
-classification forward (B2's eval form + the classifier, softmax on the
-device, read once) and, if any prediction is COVID, one segmentation
-forward over the whole batch (read once); overlays are rendered and
-written only for COVID predictions.
+classification forward (B2's eval form, with CLIP's constants for CLIP, +
+the classifier, softmax on the device, read once) and, if any prediction
+is COVID, one segmentation forward over the whole batch (read once);
+overlays are rendered and written only for COVID predictions.  CLIP's
+prompt features and CLIPSeg's conditional embedding come from their
+checkpoints' text towers (eval/harness.load_model_bundle).
 
 Outputs: predictions.csv (file, prediction, confidence, overlay_path) and
 <name>_overlay.png per COVID case.
@@ -25,9 +27,9 @@ import torch
 
 from medseg_tpu_torch.core.config import CLASSES, EvalConfig
 from medseg_tpu_torch.core.device import DeviceLike, resolve_device
-from medseg_tpu_torch.eval.harness import load_model_bundle, refuse_pending
+from medseg_tpu_torch.eval.harness import load_model_bundle
 from medseg_tpu_torch.infer.overlay import red_overlay
-from medseg_tpu_torch.infer.pipeline import Pipeline, _forward_fn, build_model
+from medseg_tpu_torch.infer.pipeline import Pipeline, model_forward
 
 
 def batch_predict(
@@ -44,21 +46,19 @@ def batch_predict(
     """Returns a list of dicts {file, prediction, confidence, overlay_path}.
     device: the card unless "cpu" is passed; without a card it raises."""
     device = resolve_device(device)
-    refuse_pending(cls_name, "predicting with")
-    refuse_pending(seg_name, "predicting with")
-    cls_state = load_model_bundle(cls_name, cfg.weights_root, seg=False)
-    if cls_state is None:
+    cls_bundle = load_model_bundle(cls_name, cfg.weights_root, False, device)
+    if cls_bundle is None:
         raise FileNotFoundError(f"no weights for {cls_name} under "
                                 f"{cfg.weights_root}")
-    cls_fn = _forward_fn(build_model(cls_name, cls_state, device), seg=False)
-    seg_state = load_model_bundle(seg_name, cfg.weights_root, seg=True)
-    if seg_state is None:
+    cls_fn = model_forward(cls_name, *cls_bundle, False, device)
+    seg_bundle = load_model_bundle(seg_name, cfg.weights_root, True, device)
+    if seg_bundle is None:
         log(f"[WARNING] no weights for {seg_name}; segmentation skipped")
         seg_fn = None
     else:
-        seg_fn = _forward_fn(build_model(seg_name, seg_state, device), seg=True)
-    cls_size, _ = Pipeline.input_grid(cls_name)
-    seg_size, _ = Pipeline.input_grid(seg_name)
+        seg_fn = model_forward(seg_name, *seg_bundle, True, device)
+    cls_grid = Pipeline.input_grid(cls_name)
+    seg_grid = Pipeline.input_grid(seg_name)
 
     out_dir = Path(output_dir) if output_dir else None
     if out_dir:
@@ -69,7 +69,7 @@ def batch_predict(
         chunk = image_paths[start:start + batch_size]
         originals = [_decode_rgb(Path(p)) for p in chunk]
 
-        cls_in = Pipeline._grid_batch(originals, cls_size, device)
+        cls_in = Pipeline._grid_batch(originals, cls_grid[0], device, cls_grid[1])
         with torch.inference_mode():
             probs_cls = torch.softmax(cls_fn(cls_in).to(torch.float32), dim=-1)
         probs_cls = probs_cls.cpu().numpy()
@@ -78,8 +78,8 @@ def batch_predict(
 
         probs = None
         if seg_fn is not None and np.any(preds == CLASSES.index("COVID")):
-            seg_in = (cls_in if seg_size == cls_size
-                      else Pipeline._grid_batch(originals, seg_size, device))
+            seg_in = (cls_in if seg_grid == cls_grid
+                      else Pipeline._grid_batch(originals, seg_grid[0], device, seg_grid[1]))
             probs = seg_fn(seg_in)[..., 0].cpu().numpy()
 
         for i, path in enumerate(chunk):

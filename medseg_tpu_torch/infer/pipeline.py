@@ -4,11 +4,15 @@ Counterpart of medseg_tpu/infer/pipeline.py:46-299 (reference
 utils/pipeline.py:178-418 `Pipeline`):
 
 - `_load_models(cls_name, seg_name)`: lazy, cached by model name; missing
-  classifier weights fall back to a fresh init (init_weights from a CPU
-  generator seeded 0) with a warning, a segmentation model that fails to
-  load yields a placeholder that skips segmentation.  A model the port
-  lacks yet raises NotImplementedError (eval/harness.refuse_pending) before
-  any of that, so a server answers it with a 400, not the placeholder.
+  classifier weights fall back to a fresh init (the registry's
+  init_weights from a CPU generator seeded 0) with a warning, a
+  segmentation model that fails to load yields a placeholder that skips
+  segmentation.  CLIP takes its prompt features and CLIPSeg its
+  conditional embedding from the checkpoint's own text tower
+  (eval/harness.load_model_bundle) unless they were passed to the
+  Pipeline; a fresh-initialized CLIP without passed features raises
+  ValueError, as the JAX package does, and a CLIPSeg without an embedding
+  becomes the placeholder.
 - `process_batch(images, seg_name, overlay_opacity)`: each original is
   copied to the device and resized once, straight to the model's grid
   (uint8, `_to_grid`); one classification forward for the group, padded
@@ -18,50 +22,63 @@ utils/pipeline.py:178-418 `Pipeline`):
   blended red.  Log lines and the analysis text are the JAX package's,
   word for word.
 
-Each forward is B2's eval form (`preprocess_eval_batch`, one launch of the
-photometric kernel on the card) and the model in eval mode, float32 (the
+Each forward is B2's eval form and the model in eval mode, float32 (the
 factories' default), under torch.inference_mode, entered inside the call
-because a server calls from its worker thread.  Each forward reads its
-result back once (logits, or probabilities) and records the batch shapes it
-has seen in `fn.seen_batches` (the analog of the JAX test's jit cache
-size).  The segmentation forward reuses the classification grid when both
-models share it, where the JAX package resizes each original again.
+because a server calls from its worker thread: for the CNNs
+`preprocess_eval_batch` (ImageNet's mean and std), for CLIP and CLIPSeg
+`clip_preprocess` at their grid size (CLIP's), each one launch of the
+photometric kernel on the card.  Each forward reads its result back once
+(logits, or probabilities [B,H,W,1]) and records the batch shapes it has
+seen in `fn.seen_batches` (the analog of the JAX test's jit cache size).
+The segmentation forward reuses the classification grid when both models
+share it, where the JAX package resizes each original again.
 
-The port serves ResNet18/50 and VGG16/19 (classification) and ResNetUnet,
-AttentionUNet, R2Unet and R2AttUnet (segmentation).  VGG's grid is 224
-(the reference's torchvision resize), the others' 256, so a VGG + U-Net
-group resizes each original twice, once per grid.  CLIP and CLIPSeg
-(bicubic grids) wait for ROADMAP A.12.
+Grids (`input_grid`): VGG's 224 (the reference's torchvision resize) and
+the other CNNs' 256 are bilinear (cv2's convention, ops/image.py), CLIP's
+224 and CLIPSeg's 352 bicubic as jax.image.resize computes it (their
+processors' resample), each rounded to uint8.  A group whose two models
+have different grids resizes each original twice, once per grid.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from medseg_tpu_torch.core.config import CLASSES, IMG_SIZE, EvalConfig
+from medseg_tpu_torch.core.config import (CLASSES, CLIP_IMG_SIZE, CLIPSEG_IMG_SIZE,
+                                          IMG_SIZE, EvalConfig)
 from medseg_tpu_torch.core.device import DeviceLike, resolve_device
 from medseg_tpu_torch.core.registry import get_model
-from medseg_tpu_torch.eval.harness import load_model_bundle, refuse_pending
+from medseg_tpu_torch.eval.harness import load_model_bundle
 from medseg_tpu_torch.infer.overlay import red_overlay
 from medseg_tpu_torch.models.resnet import init_weights
 from medseg_tpu_torch.ops.augment import preprocess_eval_batch
-from medseg_tpu_torch.ops.image import host_to_device, resize_bilinear
+from medseg_tpu_torch.ops.clip_prep import clip_preprocess
+from medseg_tpu_torch.ops.image import host_to_device, resize_bilinear, resize_jax
 
 
-def _forward_fn(model: torch.nn.Module, seg: bool):
+def _forward_fn(model: torch.nn.Module, seg: bool, clip_size: Optional[int] = None,
+                **extra: torch.Tensor):
     """uint8 [B,H,W,3] on the model's device -> logits (classification) or
-    float32 probabilities [B,H,W,1] (segmentation), on the device."""
+    float32 probabilities [B,H,W,1] (segmentation), on the device.
+    clip_size: CLIP's or CLIPSeg's grid (clip_preprocess), None for the
+    CNNs (preprocess_eval_batch); `extra` goes to the model (text_features
+    for CLIP, cond for CLIPSeg)."""
     model.eval()
 
     def fn(images_u8: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            x, _ = preprocess_eval_batch(images_u8)
-            out = model(x)
+            if clip_size is None:
+                x, _ = preprocess_eval_batch(images_u8)
+            else:
+                x = clip_preprocess(images_u8, clip_size)
+            out = model(x, **extra)
             if seg:
                 out = torch.sigmoid(out.to(torch.float32))
+                if out.dim() == 3:  # CLIPSeg's [B,H,W] logits
+                    out = out[..., None]
         fn.seen_batches.add(tuple(images_u8.shape))
         return out
 
@@ -72,14 +89,35 @@ def _forward_fn(model: torch.nn.Module, seg: bool):
 
 def build_model(name: str, state_dict, device: torch.device) -> torch.nn.Module:
     """The registry model, float32, holding `state_dict` (strict), on
-    `device`; state_dict None draws a fresh init (init_weights) from a CPU
-    generator seeded 0, the same weights on every device."""
-    model = get_model(name)["factory"](device="cpu")
+    `device`; state_dict None draws a fresh init (the registry entry's
+    init_weights, else models.resnet's) from a CPU generator seeded 0, the
+    same weights on every device."""
+    entry = get_model(name)
+    model = entry["factory"](device="cpu")
     if state_dict is None:
-        init_weights(model, torch.Generator().manual_seed(0))
+        entry.get("init_weights", init_weights)(model, torch.Generator().manual_seed(0))
     else:
         model.load_state_dict(state_dict, strict=True)
     return model.to(device)
+
+
+def model_forward(name: str, state_dict, extra: Dict[str, torch.Tensor], seg: bool,
+                  device: torch.device):
+    """_forward_fn of the registry model `name` holding `state_dict`, with
+    CLIP's or CLIPSeg's extra inputs; raises ValueError, worded as the JAX
+    package's, when CLIP has no text_features or CLIPSeg no cond."""
+    lname = name.lower()
+    if lname == "clip" and "text_features" not in extra:
+        raise ValueError(
+            "CLIP needs text_features: none embedded in the "
+            "checkpoint and none passed to Pipeline(text_features=...)")
+    if lname == "clipseg" and "cond" not in extra:
+        raise ValueError(
+            "CLIPSeg needs a conditional embedding: none embedded in "
+            "the checkpoint and none passed to Pipeline(clipseg_cond=...)")
+    extra = {k: torch.as_tensor(v).to(device) for k, v in extra.items()}
+    clip_size = Pipeline.input_grid(name)[0] if lname in ("clip", "clipseg") else None
+    return _forward_fn(build_model(name, state_dict, device), seg, clip_size, **extra)
 
 
 class Pipeline:
@@ -87,10 +125,18 @@ class Pipeline:
     # power of two, so each model sees at most log2(MAX_BATCH)+1 shapes
     MAX_BATCH = 8
 
-    def __init__(self, cfg: EvalConfig = EvalConfig(), device: DeviceLike = None):
-        """device: the card unless "cpu" is passed; without a card it raises."""
+    def __init__(self, cfg: EvalConfig = EvalConfig(),
+                 text_features: Optional[np.ndarray] = None,
+                 clipseg_cond: Optional[np.ndarray] = None, device: DeviceLike = None):
+        """text_features: [3, 512] normalized CLIP prompt features;
+        clipseg_cond: [1, 512] CLIPSeg conditional embedding (precomputed,
+        as the reference encodes its fixed prompts once, CLIP.py:36-45);
+        either overrides the checkpoint's own.  device: the card unless
+        "cpu" is passed; without a card it raises."""
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.text_features = text_features
+        self.clipseg_cond = clipseg_cond
         self._cls: Optional[Tuple[str, object]] = None  # (name, fn)
         self._seg: Optional[Tuple[str, object]] = None  # fn None: placeholder
 
@@ -98,34 +144,48 @@ class Pipeline:
     @staticmethod
     def input_grid(name: str) -> Tuple[int, str]:
         """(size, resample) of the grid each original is resized to, once:
-        VGG's 224 torchvision resize (reference pipeline.py:161-172), else
-        the 256 Albumentations transform (pipeline.py:186-193).  Reads
-        IMG_SIZE at call time, as the JAX package does."""
-        refuse_pending(name, "serving")
-        if name.lower().startswith("vgg"):
+        CLIP's 224 and CLIPSeg's 352 bicubic (their processors,
+        medseg_tpu/infer/pipeline.py:61-74), VGG's 224 torchvision resize
+        (reference pipeline.py:161-172), else the 256 Albumentations
+        transform (pipeline.py:186-193).  Reads the sizes at call time, as
+        the JAX package does."""
+        lname = name.lower()
+        if lname == "clip":
+            return CLIP_IMG_SIZE, "bicubic"
+        if lname == "clipseg":
+            return CLIPSEG_IMG_SIZE, "bicubic"
+        if lname.startswith("vgg"):
             return 224, "bilinear"
         return IMG_SIZE, "bilinear"
 
     def _load_models(self, classification_name: str, segmentation_name: str):
         if self._cls is None or self._cls[0].lower() != classification_name.lower():
             name = classification_name
-            refuse_pending(name, "serving")
-            state = load_model_bundle(name, self.cfg.weights_root, seg=False)
-            if state is None:
+            bundle = load_model_bundle(name, self.cfg.weights_root, False, self.device)
+            if bundle is None:
                 print("Weights file not found. Using fresh-initialized weights only.")
-            model = build_model(name, state, self.device)
-            self._cls = (name, _forward_fn(model, seg=False))
+                state, extra = None, {}
+            else:
+                state, extra = bundle
+            if self.text_features is None and "text_features" in extra:
+                self.text_features = extra["text_features"]
+            if self.text_features is not None and name.lower() == "clip":
+                extra = {"text_features": self.text_features}
+            self._cls = (name, model_forward(name, state, extra, False, self.device))
             print(f"Successfully loaded Classification Model: {name}")
 
         if self._seg is None or self._seg[0].lower() != segmentation_name.lower():
             name = segmentation_name
-            refuse_pending(name, "serving")  # a pending model is no load failure
             try:
-                state = load_model_bundle(name, self.cfg.weights_root, seg=True)
-                if state is None:
+                bundle = load_model_bundle(name, self.cfg.weights_root, True, self.device)
+                if bundle is None:
                     raise FileNotFoundError(name)
-                self._seg = (name, _forward_fn(build_model(name, state, self.device),
-                                               seg=True))
+                state, extra = bundle
+                if self.clipseg_cond is None and "cond" in extra:
+                    self.clipseg_cond = extra["cond"]
+                if self.clipseg_cond is not None and name.lower() == "clipseg":
+                    extra = {"cond": self.clipseg_cond}
+                self._seg = (name, model_forward(name, state, extra, True, self.device))
                 print(f"Successfully loaded Segmentation Model: {name}")
             except Exception as e:
                 print(f"CRITICAL ERROR: Failed to load segmentation weights for "
@@ -134,19 +194,26 @@ class Pipeline:
 
     # ------------------------------------------------------------------
     @staticmethod
-    def _to_grid(batch_u8: np.ndarray, size: int, device: torch.device) -> torch.Tensor:
+    def _to_grid(batch_u8: np.ndarray, size: int, device: torch.device,
+                 method: str = "bilinear") -> torch.Tensor:
         """Host uint8 [N,H,W,3] -> uint8 [N,size,size,3] on `device`, one
-        resample (round half to even, as jnp.round); only the copy when the
-        batch is already at the grid size."""
+        resample (bilinear, cv2's; or bicubic, jax.image.resize's), rounded
+        half to even as jnp.round and clipped to [0, 255]; only the copy
+        when the batch is already at the grid size."""
         x = host_to_device(batch_u8, device)
         if x.shape[1] == size and x.shape[2] == size:
             return x
-        return resize_bilinear(x, size, size).round_().clamp_(0, 255).to(torch.uint8)
+        if method == "bicubic":
+            x = resize_jax(x, size, size, "bicubic")
+        else:
+            x = resize_bilinear(x, size, size)
+        return x.round_().clamp_(0, 255).to(torch.uint8)
 
     @classmethod
-    def _grid_batch(cls, arrays, size: int, device: torch.device) -> torch.Tensor:
+    def _grid_batch(cls, arrays, size: int, device: torch.device,
+                    method: str = "bilinear") -> torch.Tensor:
         """Each original resized on its own to the grid, stacked."""
-        return torch.cat([cls._to_grid(a[None], size, device) for a in arrays])
+        return torch.cat([cls._to_grid(a[None], size, device, method) for a in arrays])
 
     @staticmethod
     def _pad_pow2(x: torch.Tensor) -> torch.Tensor:
@@ -210,8 +277,8 @@ class Pipeline:
         cls_name = self._cls[0] if self._cls else "ResNet50"
         self._load_models(cls_name, segmentation_model_name)
 
-        size, _ = self.input_grid(self._cls[0])
-        cls_in = self._grid_batch(arrays, size, self.device)
+        grid = self.input_grid(self._cls[0])
+        cls_in = self._grid_batch(arrays, *grid[:1], self.device, grid[1])
         logits = self._forward(self._cls[1], cls_in)
         probs = np.exp(logits - logits.max(axis=-1, keepdims=True))
         probs /= probs.sum(axis=-1, keepdims=True)
@@ -221,9 +288,9 @@ class Pipeline:
 
         masks = [None] * len(arrays)
         if self._seg[1] is not None and "COVID" in preds:
-            s_size, _ = self.input_grid(self._seg[0])
-            seg_in = (cls_in if s_size == size
-                      else self._grid_batch(arrays, s_size, self.device))
+            s_grid = self.input_grid(self._seg[0])
+            seg_in = (cls_in if s_grid == grid
+                      else self._grid_batch(arrays, s_grid[0], self.device, s_grid[1]))
             sp = self._forward(self._seg[1], seg_in)[..., 0]
             masks = [(p > self.cfg.threshold).astype(np.uint8) * 255 for p in sp]
 

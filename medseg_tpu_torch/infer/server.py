@@ -12,8 +12,9 @@ POST /predict      {"image": <base64>, "segmentation_model": "ResNetUnet",
   -> {"prediction", "confidence", "analysis", "overlay": <base64 png>|null}
 GET  /health       -> {"status": "ok", "models": {...}, "batching": {...}}
 
-A model the port lacks yet (CLIP, CLIPSeg: ROADMAP A.12), named in a
-request, is answered with a 400 carrying the NotImplementedError's text.
+Every model of the zoo can be named, CLIP and CLIPSeg included; a request
+that fails (an unknown model, a CLIP without prompt features) is answered
+with a 400 carrying the error's text.
 """
 
 from __future__ import annotations
@@ -119,9 +120,10 @@ class InferenceServer:
                batch_sizes=None, log=print):
         """Load the model pair and run both forwards at every micro-batch
         shape the server can route to (B in {1,2,4,8}), before accepting
-        traffic.  On the card this is where the photometric kernel is built
-        and loaded, and cuDNN picks its plans for each shape; after it, a
-        full MAX_BATCH burst meets no new batch shape."""
+        traffic, for any pair of the zoo.  On the card this is where the
+        photometric kernel is built and loaded, and cuDNN picks its plans
+        for each shape; after it, a full MAX_BATCH burst meets no new batch
+        shape."""
         if batch_sizes is None:
             batch_sizes = []
             b = 1
@@ -137,10 +139,10 @@ class InferenceServer:
                 batch = np.zeros((b, 64, 64, 3), np.uint8)
                 # drive both forwards directly: process_image reaches the
                 # segmentation forward only behind the COVID gate
-                p._predict_classification(
-                    p._to_grid(batch, p.input_grid(cls_name)[0], p.device))
-                p._predict_segmentation(
-                    p._to_grid(batch, p.input_grid(seg_name)[0], p.device))
+                cls_size, cls_method = p.input_grid(cls_name)
+                seg_size, seg_method = p.input_grid(seg_name)
+                p._predict_classification(p._to_grid(batch, cls_size, p.device, cls_method))
+                p._predict_segmentation(p._to_grid(batch, seg_size, p.device, seg_method))
                 log(f"[serve] warmup B={b} ({cls_name}+{seg_name}) "
                     f"{time.time() - tb:.1f}s")
         log(f"[serve] warmup done: B={batch_sizes} for both models in "

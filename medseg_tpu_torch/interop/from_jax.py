@@ -8,7 +8,9 @@ The variables are the nested dicts that flax's `init`/checkpoints hold
   (tests/test_upt.py), torch uses W[dy,dx];
 - Dense kernel [in, out] -> Linear weight [out, in];
 - BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var
-  (plus num_batches_tracked = 0).
+  (plus num_batches_tracked = 0);
+- LayerNorm scale/bias -> weight/bias;
+- the ViT towers' names -> HF's (clip_state_dict, clipseg_state_dict).
 """
 
 from __future__ import annotations
@@ -49,6 +51,13 @@ def _bn(sd: Dict[str, torch.Tensor], name: str, p: Mapping, s: Mapping):
     sd[f"{name}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
 
 
+def _dense(sd: Dict[str, torch.Tensor], name: str, p: Mapping):
+    """A Dense with or without bias -> Linear."""
+    sd[f"{name}.weight"] = _tensor(p["kernel"], (1, 0))
+    if "bias" in p:
+        sd[f"{name}.bias"] = _tensor(p["bias"])
+
+
 def _resnet_trunk(sd: Dict[str, torch.Tensor], p: Mapping, s: Mapping, depth: int,
                   stem=("conv1", "bn1"), stage="layer{}", first_stage=1):
     """The encoder's convs and BatchNorms, under `stem` and the stage names
@@ -70,18 +79,13 @@ def _resnet_trunk(sd: Dict[str, torch.Tensor], p: Mapping, s: Mapping, depth: in
                 _bn(sd, f"{prefix}.downsample.1", bp["down_bn"], bs["down_bn"])
 
 
-def _linear(sd: Dict[str, torch.Tensor], name: str, p: Mapping):
-    sd[f"{name}.weight"] = _tensor(p["kernel"], (1, 0))
-    sd[f"{name}.bias"] = _tensor(p["bias"])
-
-
 def resnet_classifier_state_dict(variables: Mapping, depth: int) -> Dict[str, torch.Tensor]:
     """flax ResNetClassifier variables -> state dict of models.resnet's
     ResNetClassifier (torchvision names, head at fc.1)."""
     sd: Dict[str, torch.Tensor] = {}
     _resnet_trunk(sd, variables["params"]["encoder"],
                   variables["batch_stats"]["encoder"], depth)
-    _linear(sd, "fc.1", variables["params"]["head"]["fc"])
+    _dense(sd, "fc.1", variables["params"]["head"]["fc"])
     return sd
 
 
@@ -97,7 +101,7 @@ def vgg_classifier_state_dict(variables: Mapping, depth: int) -> Dict[str, torch
             _bn(sd, f"features.{bn}", p["features"][f"bn{stage}_{i}"],
                 s["features"][f"bn{stage}_{i}"])
     for name, index in (("fc1", 0), ("fc2", 3), ("head_fc", 7)):
-        _linear(sd, f"classifier.{index}", p[name])
+        _dense(sd, f"classifier.{index}", p[name])
     return sd
 
 
@@ -182,4 +186,94 @@ def r2u_net_state_dict(variables: Mapping, attention: bool) -> Dict[str, torch.T
             _attention_gate(sd, f"att{i}", p[f"att{i}"], s[f"att{i}"])
         _rrcnn(sd, f"up_RRCNN{i}", p[f"up_rrcnn{i}"], s[f"up_rrcnn{i}"])
     _conv(sd, "conv_1x1", p["out"])
+    return sd
+
+
+def _layer_norm(sd: Dict[str, torch.Tensor], name: str, p: Mapping):
+    sd[f"{name}.weight"] = _tensor(p["scale"])
+    sd[f"{name}.bias"] = _tensor(p["bias"])
+
+
+def _n_layers(p: Mapping) -> int:
+    return sum(1 for k in p if k.startswith("layer") and k[5:].isdigit())
+
+
+def _encoder_layer(sd: Dict[str, torch.Tensor], prefix: str, p: Mapping):
+    """flax EncoderLayer (attn, ln1, ln2, mlp) -> HF's names."""
+    for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        _dense(sd, f"{prefix}.self_attn.{proj}", p["attn"][proj])
+    _layer_norm(sd, f"{prefix}.layer_norm1", p["ln1"])
+    _layer_norm(sd, f"{prefix}.layer_norm2", p["ln2"])
+    _dense(sd, f"{prefix}.mlp.fc1", p["mlp"]["fc1"])
+    _dense(sd, f"{prefix}.mlp.fc2", p["mlp"]["fc2"])
+
+
+def _vision_tower(sd: Dict[str, torch.Tensor], prefix: str, p: Mapping):
+    emb = f"{prefix}.embeddings"
+    _conv(sd, f"{emb}.patch_embedding", p["patch_embed"])
+    sd[f"{emb}.class_embedding"] = _tensor(p["class_embedding"])
+    sd[f"{emb}.position_embedding.weight"] = _tensor(p["position_embedding"])
+    _layer_norm(sd, f"{prefix}.pre_layrnorm", p["pre_layernorm"])  # HF's spelling
+    for i in range(_n_layers(p)):
+        _encoder_layer(sd, f"{prefix}.encoder.layers.{i}", p[f"layer{i}"])
+    _layer_norm(sd, f"{prefix}.post_layernorm", p["post_layernorm"])
+
+
+def _text_tower(sd: Dict[str, torch.Tensor], prefix: str, p: Mapping):
+    sd[f"{prefix}.embeddings.token_embedding.weight"] = _tensor(p["token_embedding"])
+    sd[f"{prefix}.embeddings.position_embedding.weight"] = _tensor(p["position_embedding"])
+    for i in range(_n_layers(p)):
+        _encoder_layer(sd, f"{prefix}.encoder.layers.{i}", p[f"layer{i}"])
+    _layer_norm(sd, f"{prefix}.final_layer_norm", p["final_layernorm"])
+
+
+def _clip(sd: Dict[str, torch.Tensor], prefix: str, p: Mapping, text: bool = True):
+    _vision_tower(sd, f"{prefix}vision_model", p["vision"])
+    _dense(sd, f"{prefix}visual_projection", p["visual_projection"])
+    if text:
+        _text_tower(sd, f"{prefix}text_model", p["text"])
+        _dense(sd, f"{prefix}text_projection", p["text_projection"])
+    sd[f"{prefix}logit_scale"] = _tensor(p["logit_scale"])
+
+
+def clip_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """flax CLIPModule variables -> HF CLIPModel state dict (models.clip's
+    CLIPModule)."""
+    sd: Dict[str, torch.Tensor] = {}
+    _clip(sd, "", variables["params"])
+    return sd
+
+
+def clip_classifier_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """flax CLIPClassifier variables -> models.clip's CLIPClassifier state
+    dict (the vision tower, visual_projection and logit_scale)."""
+    sd: Dict[str, torch.Tensor] = {}
+    _clip(sd, "", variables["params"], text=False)
+    return sd
+
+
+def clipseg_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """flax CLIPSegModel variables -> HF CLIPSegForImageSegmentation state
+    dict (models.clipseg's CLIPSegModel).
+
+    flax creates a submodule's parameters when it is first called, and
+    CLIPSegModel never calls its visual_projection: variables from its
+    `init` have none, and HF's key gets zeros here (no CLIPSeg forward
+    reads it)."""
+    p = dict(variables["params"])
+    dec = p["decoder"]
+    if "visual_projection" not in p:
+        hidden = np.shape(p["vision"]["class_embedding"])[0]
+        projection_dim = np.shape(dec["film_mul"]["kernel"])[0]
+        p["visual_projection"] = {"kernel": np.zeros((hidden, projection_dim), np.float32)}
+    sd: Dict[str, torch.Tensor] = {}
+    _clip(sd, "clip.", p)
+    _dense(sd, "decoder.film_mul", dec["film_mul"])
+    _dense(sd, "decoder.film_add", dec["film_add"])
+    _conv(sd, "decoder.transposed_convolution.0", dec["head_conv"])
+    _conv_transpose(sd, "decoder.transposed_convolution.2", dec["head_up1"])
+    _conv_transpose(sd, "decoder.transposed_convolution.4", dec["head_up2"])
+    for i in range(_n_layers(dec)):
+        _dense(sd, f"decoder.reduces.{i}", dec[f"reduce{i}"])
+        _encoder_layer(sd, f"decoder.layers.{i}", dec[f"layer{i}"])
     return sd

@@ -154,18 +154,68 @@ def _linear_resize_matrix(n_out: int, n_in: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
-def _resize_taps(n_out: int, n_in: int, device: torch.device):
-    """The matrix's non-zeros on `device`: for each output row its first
-    and last non-zero column and their weights (the second weight 0 where
-    the row has one non-zero).  Built once per shape and device."""
-    mat = _linear_resize_matrix(n_out, n_in)
-    rows = np.arange(n_out)
+def _jax_resize_matrix(n_out: int, n_in: int, method: str) -> np.ndarray:
+    """[n_out, n_in] float32 matrix of jax.image.resize along one axis
+    (jax._src.image.scale.compute_weight_mat, antialias on, no translation),
+    in its float32 operations: sample positions on the half-pixel
+    convention, the Keys cubic (a = -0.5) or triangle kernel widened by
+    n_in/n_out when downsampling, each output's weights divided by their sum
+    over the input, and zero for a sample outside the input.
+
+    A weight moves by up to 1.5x its sample position's error, and one
+    float32 ulp at position 128 is 7.6e-6; XLA's CPU code fuses the
+    position's multiply-add into one rounding, so it is computed here in
+    float64 and rounded once (rounding twice, the weights of 384 -> 224
+    land 7.2e-6 from JAX's; once, within 7.1e-7 for every shape tested)."""
+    kernel = {"bicubic": _keys_cubic, "bilinear": _triangle}[method]
+    f32 = np.float32
+    inv_scale = f32(1.0 / (n_out / n_in))  # a Python double in JAX, then float32
+    kernel_scale = max(inv_scale, f32(1.0))
+    half_pixel = np.arange(n_out, dtype=np.float64) + 0.5
+    sample = (half_pixel * np.float64(inv_scale) - 0.5).astype(f32)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) / kernel_scale
+    weights = kernel(x)
+    total = weights.sum(axis=0, keepdims=True, dtype=f32)
+    weights = np.where(np.abs(total) > f32(1000.0 * np.finfo(np.float32).eps),
+                       weights / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], weights, f32(0.0)).T.astype(f32)
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    out = ((np.float32(1.5) * x - np.float32(2.5)) * x) * x + np.float32(1.0)
+    out = np.where(x >= 1.0, ((np.float32(-0.5) * x + np.float32(2.5)) * x
+                              - np.float32(4.0)) * x + np.float32(2.0), out)
+    return np.where(x >= 2.0, np.float32(0.0), out).astype(np.float32)
+
+
+def _triangle(x: np.ndarray) -> np.ndarray:
+    return np.maximum(np.float32(0.0), np.float32(1.0) - np.abs(x)).astype(np.float32)
+
+
+def _resize_matrix(n_out: int, n_in: int, method: str) -> np.ndarray:
+    """The interpolation matrix of `method`: "linear" is the cv2-style
+    bilinear of resize_bilinear, "bicubic" and "bilinear" jax.image.resize's."""
+    if method == "linear":
+        return _linear_resize_matrix(n_out, n_in)
+    return _jax_resize_matrix(n_out, n_in, method)
+
+
+@functools.lru_cache(maxsize=64)
+def _resize_taps(n_out: int, n_in: int, method: str, device: torch.device):
+    """The matrix's non-zeros on `device`, as K taps: for each output row,
+    the columns from its first to its last non-zero ([K, n_out] indices)
+    and their weights ([K, n_out]; 0 past a row's last non-zero, whose
+    index then repeats it).  Built once per shape, method and device."""
+    mat = _resize_matrix(n_out, n_in, method)
     nz = mat != 0
-    i0 = nz.argmax(axis=1)
-    i1 = n_in - 1 - nz[:, ::-1].argmax(axis=1)
-    w0 = mat[rows, i0]
-    w1 = np.where(i1 != i0, mat[rows, i1], np.float32(0.0))
-    return tuple(host_to_device(a, device) for a in (i0, i1, w0, w1))
+    first = nz.argmax(axis=1)
+    last = n_in - 1 - nz[:, ::-1].argmax(axis=1)
+    k = int((last - first).max()) + 1
+    idx = np.minimum(first[None, :] + np.arange(k)[:, None], last[None, :])
+    weights = np.where(first[None, :] + np.arange(k)[:, None] <= last[None, :],
+                       mat[np.arange(n_out)[None, :], idx], np.float32(0.0))
+    return host_to_device(idx, device), host_to_device(weights, device)
 
 
 def host_to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -180,13 +230,31 @@ def host_to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
-def _contract(x: torch.Tensor, dim: int, n_out: int) -> torch.Tensor:
-    """x (float32) contracted with the interpolation matrix along `dim`."""
-    i0, i1, w0, w1 = _resize_taps(n_out, x.shape[dim], x.device)
+def _contract(x: torch.Tensor, dim: int, n_out: int, method: str) -> torch.Tensor:
+    """x (float32) contracted with the interpolation matrix along `dim`: the
+    taps' products summed in column order."""
+    idx, weights = _resize_taps(n_out, x.shape[dim], method, x.device)
     shape = [1] * x.dim()
     shape[dim] = n_out
-    return (x.index_select(dim, i0) * w0.view(shape)
-            + x.index_select(dim, i1) * w1.view(shape))
+    out = x.index_select(dim, idx[0]) * weights[0].view(shape)
+    for k in range(1, idx.shape[0]):
+        out = out + x.index_select(dim, idx[k]) * weights[k].view(shape)
+    return out
+
+
+def _resize(images: torch.Tensor, out_h: int, out_w: int, method: str) -> torch.Tensor:
+    """NHWC (or NHW) of any real dtype -> float32, rows then columns; a
+    dimension already at its size is left as it is."""
+    squeeze = images.dim() == 3
+    if squeeze:
+        images = images[..., None]
+    _, h, w, _ = images.shape
+    x = images.to(torch.float32)
+    if h != out_h:
+        x = _contract(x, 1, out_h, method)
+    if w != out_w:
+        x = _contract(x, 2, out_w, method)
+    return x[..., 0] if squeeze else x
 
 
 def resize_bilinear(images: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
@@ -204,11 +272,21 @@ def resize_bilinear(images: torch.Tensor, out_h: int, out_w: int) -> torch.Tenso
     Against the JAX package's matmul the sums may round differently in the
     last bit (the zero terms add exactly; the two products may be fused
     there), which moves a value across a rounding tie only rarely."""
-    squeeze = images.dim() == 3
-    if squeeze:
-        images = images[..., None]
-    _, h, w, _ = images.shape
-    x = images.to(torch.float32)
-    if (h, w) != (out_h, out_w):
-        x = _contract(_contract(x, 1, out_h), 2, out_w)
-    return x[..., 0] if squeeze else x
+    if images.shape[1:3] == (out_h, out_w):
+        return images.to(torch.float32)
+    return _resize(images, out_h, out_w, "linear")
+
+
+def resize_jax(images: torch.Tensor, out_h: int, out_w: int,
+               method: str = "bicubic") -> torch.Tensor:
+    """jax.image.resize of an NHWC (or NHW) batch over H and W, any real
+    dtype -> float32: `method` "bicubic" (Keys, a = -0.5) or "bilinear",
+    with JAX's antialiasing when downsampling
+    (medseg_tpu/ops/clip_prep.py:28, infer/pipeline.py:181,
+    eval/harness.py:178).  F.interpolate computes other weights (up to 0.77
+    apart at 1024 -> 224, and within 7.3e-6 with antialias=True).  The
+    contraction is resize_bilinear's: each row's taps (3-5 for bicubic 256
+    -> 224, at most 4 upsampling, up to 19 for 1024 -> 224) gathered and
+    summed in float32, which no TF32 flag moves; JAX's dense einsum may
+    round the same sum differently in the last bit."""
+    return _resize(images, out_h, out_w, method)

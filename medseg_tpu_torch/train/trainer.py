@@ -51,7 +51,6 @@ from medseg_tpu_torch.core.device import DeviceLike, resolve_device
 from medseg_tpu_torch.core.precision import policy_from_name
 from medseg_tpu_torch.core.registry import get_model
 from medseg_tpu_torch.data.loader import BatchLoader
-from medseg_tpu_torch.eval.harness import refuse_pending
 from medseg_tpu_torch.models.resnet import init_weights
 from medseg_tpu_torch.ops.augment import augment_batch, preprocess_eval_batch
 from medseg_tpu_torch.train import checkpoint as ckpt
@@ -100,8 +99,11 @@ def train_model(
     device: the card unless "cpu" is passed; without a card it raises.
     Batches are moved to `device` if the loaders serve another."""
     device = resolve_device(device)
-    refuse_pending(name, "training")
     entry = get_model(name)
+    if entry.get("needs_text_features"):
+        raise ValueError(
+            f"{name} uses the dedicated finetune recipe "
+            f"(train.finetune_clip / train.finetune_clipseg), not train_model")
     seg = entry["task"] == "segmentation"
     policy = policy_from_name(cfg.compute_dtype)
     dtype = policy.compute_dtype

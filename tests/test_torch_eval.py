@@ -116,9 +116,21 @@ def test_all_models_without_weights_returns_nothing(tmp_path):
 
 
 def test_segmentation_and_mesh_are_not_ported_yet(tmp_path):
+    """Segmentation's last pending model, CLIPSeg (ROADMAP A.12), now
+    evaluates: its .pt at the tiny tower config, with the conditional
+    embedding from its own text tower, gives the six metrics (the parity
+    with the JAX package is tests/test_torch_clip_infer.py's).  The mesh
+    branch still waits for A.14."""
+    from medseg_tpu_torch.data.synthetic import synthetic_seg
+    from tests.torch_clip_helpers import tiny_clip_patched, write_clip_weights
+
+    with tiny_clip_patched(tmp_path):
+        root = write_clip_weights(tmp_path / "weights", clip=False)
+        seg = BatchLoader(synthetic_seg(4, SIZE), 4, shuffle=False, device="cpu")
+        res = H.evaluate_model("CLIPSeg", seg, None, EvalConfig(weights_root=str(root)),
+                               log=_quiet, device="cpu")
+    assert set(res) == {"iou", "dice", "pixel_accuracy", "precision", "recall", "f1"}
     loader = BatchLoader(synthetic_cls(4, SIZE), 4, shuffle=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.12"):
-        H.evaluate_model("CLIPSeg", loader, {}, log=_quiet, device="cpu")
     with pytest.raises(NotImplementedError, match="A.14"):
         H.evaluate_model("ResNet18", loader, {}, log=_quiet, mesh=object(),
                          device="cpu")

@@ -209,16 +209,35 @@ def test_pipeline_missing_segmentation_weights_warns(grid64, roots, capsys):
 
 @pytest.mark.parametrize("name,seg,item", [("CLIP", False, "A.12"),
                                            ("CLIPSeg", True, "A.12")])
-def test_pending_model_raises_not_implemented(roots, name, seg, item):
-    """A model the port lacks raises NotImplementedError naming its ROADMAP
-    item; a pending segmentation model does not become the placeholder."""
-    p = tpipeline.Pipeline(EvalConfig(weights_root=str(roots["covid"])), device="cpu")
-    names = ("ResNet18", name) if seg else (name, "ResNetUnet")
-    with pytest.raises(NotImplementedError, match=rf"{name} .*ROADMAP {item}\)"):
+def test_pending_model_raises_not_implemented(roots, tmp_path, capsys, name, seg, item):
+    """The models of ROADMAP `item`, once refused with NotImplementedError,
+    now load and serve: CLIP (bicubic 32 grid at the tiny tower config)
+    in front of ResNetUnet, CLIPSeg (bicubic 48) behind the
+    COVID-forced ResNet18, each from its own .pt and prompt ids; no log
+    line names the item.  Parity with the JAX package:
+    tests/test_torch_clip_infer.py."""
+    from tests.torch_clip_helpers import (CLIP_GRID, CLIPSEG_GRID, tiny_clip_patched,
+                                          write_clip_weights)
+
+    with tiny_clip_patched(tmp_path):
+        root = write_clip_weights(write_weights(tmp_path / "w", winner=0))
+        p = tpipeline.Pipeline(EvalConfig(weights_root=str(root)), device="cpu")
+        names = ("ResNet18", name) if seg else (name, "ResNetUnet")
         p._load_models(*names)
-    assert p._seg is None
-    with pytest.raises(NotImplementedError, match=item):
-        tpipeline.Pipeline.input_grid(name)
+        assert tpipeline.Pipeline.input_grid(name) == (
+            CLIPSEG_GRID if seg else CLIP_GRID, "bicubic")
+        arrays = images(6, [(80, 96), (GRID, GRID)])
+        out = p.process_batch(arrays, names[1])
+    log = capsys.readouterr().out
+    assert f"Successfully loaded {'Segmentation' if seg else 'Classification'} Model: " \
+           f"{name}" in log and item not in log
+    assert p._seg[1] is not None and len(out) == 2
+    if seg:
+        assert [o[0] for o in out] == ["COVID", "COVID"]
+        assert p._seg[1].seen_batches == {(2, CLIPSEG_GRID, CLIPSEG_GRID, 3)}
+        assert all(o[2].shape == a.shape for o, a in zip(out, arrays))
+    else:
+        assert p._cls[1].seen_batches == {(2, CLIP_GRID, CLIP_GRID, 3)}
 
 
 @pytest.mark.parametrize("name,seg", [("VGG16", False), ("VGG19", False),

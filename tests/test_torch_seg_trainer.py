@@ -201,7 +201,8 @@ def test_best_checkpoint_evaluates_in_both_harnesses(both_runs):
 
     variables, _ = JH.load_model_bundle("ResNetUnet", weights, seg=True)
     model = tunet.resnet_unet(device="cpu")
-    model.load_state_dict(H.load_model_bundle("ResNetUnet", weights, seg=True), strict=True)
+    sd, _ = H.load_model_bundle("ResNetUnet", weights, seg=True)
+    model.load_state_dict(sd, strict=True)
     images = np.random.default_rng(0).normal(0, 1, (2, SIZE, SIZE, 3)).astype(np.float32)
     want = np.asarray(JResNetUnet().apply(variables, jnp.asarray(images)))
     with torch.no_grad():

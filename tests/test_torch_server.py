@@ -113,20 +113,30 @@ def test_server_bad_request_and_unknown_path():
 
 @pytest.mark.parametrize("field,name,item", [
     ("classification_model", "CLIP", "A.12"), ("segmentation_model", "CLIPSeg", "A.12")])
-def test_server_pending_model_is_a_400(covid_root, field, name, item):
-    """A pending model named in a request is answered with the
-    NotImplementedError's text, never the failed-to-load placeholder."""
-    server = _server(covid_root)
-    httpd, port = server.start_background()
-    try:
-        with pytest.raises(urllib.error.HTTPError) as ei:
-            _post(port, {"image": _b64png(images(1, [(GRID, GRID)])[0]), field: name})
-        assert ei.value.code == 400
-        error = json.loads(ei.value.read())["error"]
-        assert f"{name}" in error and f"ROADMAP {item}" in error
-        assert server.pipeline._seg is None or server.pipeline._seg[1] is not None
-    finally:
-        httpd.shutdown()
+def test_server_pending_model_is_a_400(covid_root, tmp_path, field, name, item):
+    """The models of ROADMAP `item`, once answered with a 400, are served:
+    a request naming CLIP (in front of ResNetUnet) or CLIPSeg (behind the
+    COVID-forced ResNet18), at the tiny tower config, gets a 200 and
+    /health names the model; a CLIPSeg verdict comes with its overlay at
+    the request's size."""
+    from tests.torch_clip_helpers import tiny_clip_patched, write_clip_weights
+
+    with tiny_clip_patched(tmp_path):
+        server = _server(write_clip_weights(write_weights(tmp_path / "w", winner=0)))
+        httpd, port = server.start_background()
+        try:
+            img = images(1, [(GRID, GRID + 8)])[0]
+            out = _post(port, {"image": _b64png(img), field: name})
+            assert out["prediction"] in ("COVID", "Healthy", "Non-COVID")
+            assert item not in out["analysis"]
+            if name == "CLIPSeg":
+                assert out["prediction"] == "COVID"
+                assert _read(base64.b64decode(out["overlay"])).shape == img.shape
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/health",
+                                        timeout=30) as resp:
+                assert name in json.loads(resp.read())["models"].values()
+        finally:
+            httpd.shutdown()
 
 
 @pytest.mark.parametrize("field,name", [("classification_model", "VGG16"),
@@ -267,7 +277,8 @@ def test_batch_predict_missing_classifier_weights(tmp_path):
     with pytest.raises(FileNotFoundError):
         tbatch.batch_predict(["nope.png"], cfg=EvalConfig(weights_root=str(tmp_path)),
                              log=lambda *_: None, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.12"):
+    # CLIP, once refused (ROADMAP A.12), is missing its weights like any other
+    with pytest.raises(FileNotFoundError, match="no weights for CLIP"):
         tbatch.batch_predict(["nope.png"], cls_name="CLIP", device="cpu",
                              cfg=EvalConfig(weights_root=str(tmp_path)))
 

@@ -151,7 +151,7 @@ def test_best_checkpoint_loads_in_both_harnesses(both_runs):
     batch."""
     weights = str(both_runs["root"])
     variables, _ = JH.load_model_bundle("ResNet18", weights, seg=False)
-    sd = H.load_model_bundle("ResNet18", weights, seg=False)
+    sd, _ = H.load_model_bundle("ResNet18", weights, seg=False)
     model = tresnet.resnet18(device="cpu")
     model.load_state_dict(sd, strict=True)
     images = np.random.default_rng(0).normal(0, 1, (4, SIZE, SIZE, 3)).astype(np.float32)
