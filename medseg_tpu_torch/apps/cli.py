@@ -1,15 +1,39 @@
-"""Command-line interface of the port: `serve` and `predict`.
+"""Command-line interface of the port.
 
+    python -m medseg_tpu_torch.apps.cli train [MODELS...] [--epochs 20]
+    python -m medseg_tpu_torch.apps.cli eval  [--batch-size 16]
+    python -m medseg_tpu_torch.apps.cli finetune-clip    --random-init
+    python -m medseg_tpu_torch.apps.cli finetune-clipseg --random-init
     python -m medseg_tpu_torch.apps.cli serve   [--port 8000] [--no-warmup]
     python -m medseg_tpu_torch.apps.cli predict --input DIR [--output DIR]
 
-Counterpart of `_cmd_serve` and `_cmd_predict` in medseg_tpu/apps/cli.py,
-with the same arguments and --weights-root (the JAX CLI's other shared
-paths serve its other subcommands).  Both run on the card unless
-`--device cpu` is passed, and serve every model of the zoo.
-`--prompt-ids PATH` names the JSON bundle of CLIP's and CLIPSeg's prompt
-token ids (it sets $MEDSEG_PROMPT_IDS, interop/prompts.py).  The other
-subcommands wait for ROADMAP A.15.
+Counterpart of medseg_tpu/apps/cli.py's `train` (:98-140), `eval`
+(:143-165), `finetune-clip` and `finetune-clipseg` (:235-319), `serve` and
+`predict`, with the same arguments, defaults and printed lines.  Every
+command runs on the card unless `--device cpu` is passed.  Shared paths:
+--root (the dataset; --cache-dir defaults to {root}/packed, the JAX CLI's
+default "dataset/packed"), --cache-dir (the packed caches that `medseg
+pack` writes), --weights-root and --results-dir.  `--prompt-ids PATH`
+names the JSON bundle of CLIP's and CLIPSeg's prompt token ids (it sets
+$MEDSEG_PROMPT_IDS, interop/prompts.py); checkpoints that the finetuners
+wrote carry their own prompt features and need none.
+
+Loaders keep each packed split on the card (BatchLoader's device cache,
+within its budget), as the JAX CLI's single-chip `train` does.  The
+finetuners without `--random-init` raise the JAX package's offline error:
+the HuggingFace route (medseg_tpu/interop/hf_pretrained.py) needs a
+download and is not ported.  `--random-init` builds the full-size model
+with init_weights from a seeded torch.Generator, and the JAX package's
+prompt features / conditional embedding drawn from default_rng(0).
+
+Not registered, so argparse refuses them (ROADMAP):
+- --data-parallel of train, eval and the finetuners (A.14);
+- --scan-chunk (A.16: its CUDA form is a graph of the step, A.7);
+- --auto-restart (A.16: decided not to port; it restarted after relay drops);
+- --profile (jax.profiler; not ported);
+- eval --compare and the `parity` subcommand (eval/parity.py imports pandas);
+- `split`, `pack`, `install-data`, `demo`, `bench`, `export-torch`
+  (A.15; split and pack import pandas and sklearn).
 """
 
 from __future__ import annotations
@@ -18,7 +42,154 @@ import argparse
 import glob
 import os
 
-from medseg_tpu_torch.core.config import EvalConfig
+import numpy as np
+
+from medseg_tpu_torch.core.config import NUM_CLASSES, EvalConfig, TrainConfig
+
+DEFAULT_TRAIN_MODELS = ["ResNet50", "ResNet18", "VGG16", "VGG19",
+                        "ResNetUnet", "AttentionUNet", "R2Unet", "R2AttUnet"]
+CLIP_NAME = "openai/clip-vit-base-patch32"
+CLIPSEG_NAME = "CIDAS/clipseg-rd64-refined"
+FINETUNE_VAL_FRACTION = 0.1111  # medseg_tpu/apps/cli.py:295
+
+
+def _loaders(cache_dir: str, task: str, batch_size: int, val_fraction: float, device):
+    """(train, validation) loaders over `train_{task}`, split by
+    split_train_val with seed 0 (medseg_tpu/apps/cli.py:58-75)."""
+    from medseg_tpu_torch.data.loader import BatchLoader, split_train_val
+    from medseg_tpu_torch.data.packed import load_packed
+
+    ds = load_packed(cache_dir, f"train_{task}")
+    tr_idx, va_idx = split_train_val(len(ds), val_fraction)
+    train = BatchLoader(ds, batch_size, shuffle=True, indices=tr_idx,
+                        device_cache=True, device=device)
+    val = BatchLoader(ds, batch_size, shuffle=False, indices=va_idx, device_cache=True,
+                      device=device)
+    return train, val
+
+
+def _cmd_train(args):
+    from medseg_tpu_torch.core.registry import get_model
+    from medseg_tpu_torch.train import train_model
+
+    cfg = TrainConfig(epochs=args.epochs, lr=args.lr, save_root=args.weights_root,
+                      compute_dtype=args.dtype)
+    results, tasks = {}, {}
+    for name in args.models:
+        task = get_model(name)["task"]
+        tasks[name] = task
+        seg = task == "segmentation"
+        bs = args.batch_size or (cfg.seg_batch_size if seg else cfg.cls_batch_size)
+        print(f"\n--- Training {task} model: {name} ---")
+        train, val = _loaders(args.cache_dir, "seg" if seg else "cls", bs,
+                              cfg.val_fraction, device=args.device)
+        res = train_model(name, train, val, cfg, resume=args.resume, device=args.device)
+        results[name] = res.best_score
+
+    print("\n\n=============== Training Summary ===============")
+    # by task, not by name (the reference's "Unet" filter drops AttentionUNet)
+    for k, v in sorted(results.items()):
+        if tasks[k] == "classification":
+            print(f"{k:<15}: {v:.2f}% Acc (Classification)")
+        else:
+            print(f"{k:<15}: {v:.4f} Loss (Segmentation)")
+    print("================================================")
+
+
+def _cmd_eval(args):
+    from medseg_tpu_torch.data.loader import BatchLoader
+    from medseg_tpu_torch.data.packed import load_packed
+    from medseg_tpu_torch.eval.csv_io import save_results_to_csv
+    from medseg_tpu_torch.eval.harness import print_summary, test_all_models
+
+    cfg = EvalConfig(batch_size=args.batch_size, weights_root=args.weights_root,
+                     results_dir=args.results_dir)
+    cls_loader = seg_loader = None
+    try:
+        cls_loader = BatchLoader(load_packed(args.cache_dir, "test_cls"), cfg.batch_size,
+                                 shuffle=False, device=args.device)
+    except FileNotFoundError:
+        print("[WARNING] Classification test cache not found; skipping.")
+    try:
+        seg_loader = BatchLoader(load_packed(args.cache_dir, "test_seg"),
+                                 cfg.batch_size // 2, shuffle=False, device=args.device)
+    except FileNotFoundError:
+        print("[WARNING] Segmentation test cache not found; skipping.")
+    results = test_all_models(cls_loader, seg_loader, cfg, device=args.device)
+    print_summary(results)
+    save_results_to_csv(results, f"{cfg.results_dir}/classification_test_results.csv",
+                        f"{cfg.results_dir}/segmentation_test_results.csv")
+
+
+def _offline_error(name: str) -> RuntimeError:
+    """medseg_tpu/interop/hf_pretrained.py:27-31's error."""
+    exc = ModuleNotFoundError("the port has no HuggingFace route; pass --random-init")
+    return RuntimeError(
+        f"could not load {name} from HuggingFace (offline environment?). "
+        f"Pre-populate the HF cache or pass converted variables directly. "
+        f"Original error: {exc}")
+
+
+def random_prompt_features(dim: int) -> np.ndarray:
+    """The JAX CLI's random prompt features: [3, dim] default_rng(0) normal
+    draws, each row L2-normalized (medseg_tpu/apps/cli.py:235-256)."""
+    tf = np.random.default_rng(0).standard_normal((NUM_CLASSES, dim)).astype(np.float32)
+    return tf / np.linalg.norm(tf, axis=-1, keepdims=True)
+
+
+def random_cond(dim: int) -> np.ndarray:
+    """The JAX CLI's random conditional embedding (cli.py:259-277)."""
+    return np.random.default_rng(0).standard_normal((1, dim)).astype(np.float32)
+
+
+def _random_init(name: str, device):
+    """The full-size registry model on `device`, init_weights drawn from a
+    torch.Generator seeded 0 on that device: the offline stand-in for the
+    HF pretrained tower (metrics from it are meaningless; the recipe,
+    shapes and checkpoint are the pretrained path's)."""
+    import torch
+
+    from medseg_tpu_torch.core.device import resolve_device
+    from medseg_tpu_torch.core.registry import get_model
+
+    print(f"[WARNING] --random-init: finetuning a RANDOMLY initialized {name} "
+          f"(no HF weights; metrics will be meaningless — smoke/cert only)")
+    device = resolve_device(device)
+    entry = get_model(name)
+    return entry["init_weights"](entry["factory"](device=device),
+                                 torch.Generator(device=device).manual_seed(0))
+
+
+def random_init_clip(device=None):
+    """(CLIPClassifier, prompt features) of `finetune-clip --random-init`."""
+    model = _random_init("CLIP", device)
+    return model, random_prompt_features(model.visual_projection.out_features)
+
+
+def random_init_clipseg(device=None):
+    """(CLIPSegModel, conditional embedding) of `finetune-clipseg --random-init`."""
+    model = _random_init("CLIPSeg", device)
+    return model, random_cond(model.decoder.film_mul.in_features)
+
+
+def _cmd_finetune(args):
+    """finetune-clip / finetune-clipseg (medseg_tpu/apps/cli.py:280-319)."""
+    from medseg_tpu_torch.core.config import CLIPFinetuneConfig, CLIPSegFinetuneConfig
+    from medseg_tpu_torch.train.clip_finetune import finetune_clip
+    from medseg_tpu_torch.train.clipseg_finetune import finetune_clipseg
+
+    config, hf_name, task, random_init, finetune = (
+        (CLIPSegFinetuneConfig, CLIPSEG_NAME, "seg", random_init_clipseg, finetune_clipseg)
+        if args.cmd == "finetune-clipseg" else
+        (CLIPFinetuneConfig, CLIP_NAME, "cls", random_init_clip, finetune_clip))
+    cfg = config(save_root=args.weights_root, epochs=args.epochs,
+                 **({"batch_size": args.batch_size} if args.batch_size else {}))
+    if not args.random_init:
+        raise _offline_error(hf_name)
+    model, aux = random_init(args.device)
+    train, val = _loaders(args.cache_dir, task, cfg.batch_size, FINETUNE_VAL_FRACTION,
+                          device=args.device)
+    finetune(train, val, model, aux, cfg, device=args.device)
 
 
 def _cmd_predict(args):
@@ -51,7 +222,11 @@ def main(argv=None):
     def add(name, fn):
         sp = sub.add_parser(name)
         sp.set_defaults(fn=fn)
+        sp.add_argument("--root", default="dataset")
+        sp.add_argument("--cache-dir", default=None,
+                        help="packed caches (default: {root}/packed)")
         sp.add_argument("--weights-root", default="weights")
+        sp.add_argument("--results-dir", default="results")
         sp.add_argument("--device", default=None,
                         help="torch device (default: the card; 'cpu' to run "
                              "on the CPU)")
@@ -60,6 +235,23 @@ def main(argv=None):
                              "ids (sets $MEDSEG_PROMPT_IDS)")
         return sp
 
+    sp = add("train", _cmd_train)
+    sp.add_argument("models", nargs="*", default=DEFAULT_TRAIN_MODELS)
+    sp.add_argument("--epochs", type=int, default=20)
+    sp.add_argument("--lr", type=float, default=1e-6)
+    sp.add_argument("--batch-size", type=int, default=None)
+    sp.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
+    sp.add_argument("--resume", action="store_true")
+    sp = add("eval", _cmd_eval)
+    sp.add_argument("--batch-size", type=int, default=16)
+    for ft_name in ("finetune-clip", "finetune-clipseg"):
+        sp = add(ft_name, _cmd_finetune)
+        sp.add_argument("--epochs", type=int, default=20)
+        sp.add_argument("--batch-size", type=int, default=None)
+        sp.add_argument("--random-init", action="store_true",
+                        help="finetune a randomly initialized full-size tower "
+                             "instead of the HF pretrained one (offline smoke "
+                             "and certification; metrics are meaningless)")
     sp = add("predict", _cmd_predict)
     sp.add_argument("--input", required=True)
     sp.add_argument("--output", default="predictions")
@@ -74,6 +266,8 @@ def main(argv=None):
                          "startup")
 
     args = p.parse_args(argv)
+    if args.cache_dir is None:
+        args.cache_dir = f"{args.root}/packed"
     if args.prompt_ids:
         os.environ["MEDSEG_PROMPT_IDS"] = args.prompt_ids
     args.fn(args)

@@ -1,4 +1,4 @@
-"""Reference constants and the configs this slice needs.
+"""Reference constants and the configs the port needs.
 
 A copy of the corresponding parts of medseg_tpu/core/config.py; the values
 reproduce the reference's hardcoded ones (reference utils/trainer.py:28-49).
@@ -99,3 +99,30 @@ class TrainConfig:
     @property
     def seg_save_dir(self) -> Path:
         return Path(self.save_root) / "segmentation_models"
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPFinetuneConfig:
+    """CLIP vision-tower finetune recipe (reference utils/clip_finetuner.py:31-39)."""
+
+    batch_size: int = 32
+    epochs: int = 20
+    lr: float = 5e-6
+    weight_decay: float = 5e-4
+    grad_clip_norm: float = 1.0
+    early_stop_patience: int = 10
+    save_root: str = "weights"
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPSegFinetuneConfig:
+    """CLIPSeg decoder-only finetune recipe (reference utils/clip_seg_finetuner.py:25-32,121-135)."""
+
+    batch_size: int = 8
+    epochs: int = 20
+    lr: float = 1e-5
+    weight_decay: float = 0.01
+    bce_weight: float = 0.5
+    dice_weight: float = 0.5
+    early_stop_patience: int = 10
+    save_root: str = "weights"

@@ -115,3 +115,12 @@ class BatchLoader:
             yield tuple(
                 torch.from_numpy(np.ascontiguousarray(a[idx])).to(self.device)
                 for a in (self.ds.images, target))
+
+
+def split_train_val(n: int, val_fraction: float, seed: int = 0):
+    """The index split of the train manifest (medseg_tpu/data/loader.py:159;
+    the reference's random_split, utils/trainer.py:128-133): the same
+    permutation, so both packages train and validate on the same samples."""
+    order = np.random.default_rng(seed).permutation(n)
+    n_train = int((1.0 - val_fraction) * n)
+    return order[:n_train], order[n_train:]

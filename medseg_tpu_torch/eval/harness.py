@@ -23,6 +23,7 @@ Differences from the JAX package:
   into the port's models, named as the reference's, with strict=True; the
   port's trainer writes the same files (train/checkpoint.py).  CLIP's and
   CLIPSeg's extra inputs (prompt features, conditional embedding) come
+  from the file's aux tensors when the port's finetuners wrote it, else
   from the checkpoint's own text tower and the prompt ids
   (interop/prompts.py), computed on the eval device;
 - the mesh branch raises NotImplementedError naming ROADMAP A.14;
@@ -46,6 +47,7 @@ from medseg_tpu_torch.eval import metrics as M
 from medseg_tpu_torch.ops.augment import preprocess_eval_batch
 from medseg_tpu_torch.ops.clip_prep import clip_preprocess
 from medseg_tpu_torch.ops.image import resize_jax
+from medseg_tpu_torch.train.checkpoint import split_aux
 
 CLS_MODELS = ("ResNet18", "ResNet50", "VGG16", "VGG19", "CLIP")
 SEG_MODELS = ("ResNetUnet", "AttentionUNet", "R2Unet", "R2AttUnet", "CLIPSeg")
@@ -59,17 +61,26 @@ def load_model_bundle(name: str, weights_root: str, seg: bool,
     """(state_dict, extra_inputs) from the reference's torch .pt for `name`,
     or None when it is missing.  For CLIP and CLIPSeg, extra_inputs holds
     the prompt features ("text_features") or the conditional embedding
-    ("cond"), computed on `device` (the card unless "cpu") from the
-    checkpoint's own text tower and the prompt ids (tester.py:559-565,
-    642-648), and the state dict is the image side's (CLIP) or the full
+    ("cond") on `device` (the card unless "cpu"): the file's own aux
+    tensors when a finetuner wrote them (train/checkpoint.save_best), as
+    the JAX harness reads an orbax tree's aux first; else computed from
+    the checkpoint's own text tower and the prompt ids (tester.py:559-565,
+    642-648).  The state dict is the image side's (CLIP) or the full
     model's (CLIPSeg); the other models have no extra inputs."""
     sub = "segmentation_models" if seg else "classification_models"
     suffix = "best_loss" if seg else "best_acc"
     pt_path = Path(weights_root) / sub / f"{name}_{suffix}.pt"
     if not pt_path.exists():
         return None
-    sd = torch.load(str(pt_path), map_location="cpu", weights_only=True)
+    sd, aux = split_aux(torch.load(str(pt_path), map_location="cpu", weights_only=True))
     lname = name.lower()
+    if aux:  # a finetuner's own file (medseg_tpu/eval/harness.py:48-53)
+        from medseg_tpu_torch.interop.text_features import (classifier_state_dict,
+                                                            hf_state_dict)
+
+        device = resolve_device(device)
+        sd = classifier_state_dict(sd) if lname == "clip" else hf_state_dict(sd)
+        return sd, {k: v.to(device) for k, v in aux.items()}
     if lname == "clip":
         from medseg_tpu_torch.interop.text_features import clip_bundle_from_torch_sd
 

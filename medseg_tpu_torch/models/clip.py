@@ -72,10 +72,13 @@ class CLIPClassifier(nn.Module):
 
     def forward(self, pixels: torch.Tensor, text_features: torch.Tensor) -> torch.Tensor:
         """pixels: NHWC CLIP-normalized; text_features: [num_classes, dim],
-        L2-normalized.  Returns float32 [B, num_classes]."""
-        img = self.visual_projection(self.vision_model(pixels)[0]).to(torch.float32)
+        L2-normalized.  Returns float32 [B, num_classes] (float64 for a
+        float64 model)."""
+        img = self.visual_projection(self.vision_model(pixels)[0])
+        dtype = torch.promote_types(img.dtype, torch.float32)
+        img = img.to(dtype)
         img = img / img.norm(dim=-1, keepdim=True)
-        return self.logit_scale.to(torch.float32).exp() * img @ text_features.to(torch.float32).T
+        return self.logit_scale.to(dtype).exp() * img @ text_features.to(dtype).T
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -102,8 +105,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
 @register_model("CLIP", task="classification", needs_text_features=True,
                 init_weights=init_weights)
 def clip_classifier(num_classes: int = 3, device: DeviceLike = None, **kw) -> CLIPClassifier:
-    """Randomly initialized from torch's global generator (seed it first).
+    """Randomly initialized on `device` from its global generator (seed
+    it first); on the meta device, not initialized.
     The class count is carried by the text features, as in the JAX
     package."""
     del num_classes
-    return CLIPClassifier(**kw).to(resolve_device(device))
+    with torch.device(resolve_device(device)):  # initialized where it lives
+        return CLIPClassifier(**kw)

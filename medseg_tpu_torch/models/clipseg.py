@@ -58,7 +58,8 @@ class CLIPSegDecoder(nn.Module):
 
     def forward(self, activations: Sequence[torch.Tensor], cond: torch.Tensor) -> torch.Tensor:
         """activations: shallow-to-deep hidden states [B, 1+S, hidden];
-        cond: [B, projection_dim].  Returns float32 [B, H, W] logits."""
+        cond: [B, projection_dim].  Returns float32 [B, H, W] logits (float64
+        for a float64 model)."""
         output = None
         for i, act in enumerate(reversed(activations)):  # deepest first, as HF
             red = self.reduces[i](act)
@@ -70,7 +71,8 @@ class CLIPSegDecoder(nn.Module):
         b, s, c = tokens.shape
         size = int(round(s ** 0.5))
         x = tokens.transpose(1, 2).reshape(b, c, size, size)
-        return self.transposed_convolution(x)[:, 0].to(torch.float32)
+        out = self.transposed_convolution(x)[:, 0]
+        return out.to(torch.promote_types(out.dtype, torch.float32))
 
 
 class CLIPSegModel(nn.Module):
@@ -86,6 +88,16 @@ class CLIPSegModel(nn.Module):
         self.decoder = CLIPSegDecoder(vision_cfg.hidden_size, projection_dim, reduce_dim,
                                       len(self.extract_layers), vision_cfg.patch_size,
                                       decoder_heads, decoder_intermediate)
+
+    def logit_size(self, image_size: int) -> int:
+        """Side of the logit grid for an image_size input: the patch grid
+        times the transposed convolutions' strides (352 for 352 at patch
+        16), with no forward."""
+        size = image_size // self.clip.vision_model.cfg.patch_size
+        for m in self.decoder.transposed_convolution:
+            if isinstance(m, nn.ConvTranspose2d):
+                size *= m.stride[0]
+        return size
 
     def encode_text(self, input_ids: torch.Tensor) -> torch.Tensor:
         """The conditional (FiLM) embedding: projected pooled text features."""
@@ -110,5 +122,7 @@ class CLIPSegModel(nn.Module):
 @register_model("CLIPSeg", task="segmentation", needs_text_features=True,
                 init_weights=init_weights)
 def clipseg(device: DeviceLike = None, **kw) -> CLIPSegModel:
-    """Randomly initialized from torch's global generator (seed it first)."""
-    return CLIPSegModel(**kw).to(resolve_device(device))
+    """Randomly initialized on `device` from its global generator (seed
+    it first); on the meta device, not initialized."""
+    with torch.device(resolve_device(device)):  # initialized where it lives
+        return CLIPSegModel(**kw)

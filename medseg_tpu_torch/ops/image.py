@@ -125,10 +125,16 @@ def identity_affine(batch_shape=(), device=None) -> torch.Tensor:
 def normalize_imagenet(images: torch.Tensor, mean: Sequence[float],
                        std: Sequence[float]) -> torch.Tensor:
     """uint8/float [B,H,W,3] in [0,255] -> float32 normalized (A.Normalize)."""
-    dev = images.device
-    mean = torch.tensor(mean, dtype=torch.float32, device=dev) * 255.0
-    std = torch.tensor(std, dtype=torch.float32, device=dev) * 255.0
+    mean, std = _scaled_constants(tuple(mean), tuple(std), images.device)
     return (images.to(torch.float32) - mean) / std
+
+
+@functools.lru_cache(maxsize=16)
+def _scaled_constants(mean: tuple, std: tuple, device: torch.device):
+    """(255*mean, 255*std) in float32 on `device`, copied there once per
+    device: a copy from the host each call synchronized the finetune step."""
+    return tuple(host_to_device((torch.tensor(v, dtype=torch.float32) * 255.0).numpy(), device)
+                 for v in (mean, std))
 
 
 # --------------------------------------------------------------------------

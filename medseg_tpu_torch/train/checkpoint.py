@@ -6,8 +6,15 @@ Counterpart of medseg_tpu/train/checkpoint.py, which writes orbax trees:
   state dict under the reference's key names (utils/helpers.py:394-400,
   medseg_tpu/train/checkpoint.py:24-25).  It is the file both eval
   harnesses load (this package's eval/harness.py and the
-  JAX package's medseg_tpu/eval/harness.py:55-58), so a model trained here
-  is evaluated by either;
+  JAX package's medseg_tpu/eval/harness.py:55-58), so a CNN trained here
+  is evaluated by either.  The finetuners add `aux`, the small tensors
+  CLIP and CLIPSeg take at inference (the prompt features, the
+  conditional embedding), as JAX's aux subtree (:55-72): each under the
+  reserved key `aux.<name>` beside the HF-named state dict, split off by
+  `split_aux` before a strict load.  `meta` goes to a JSON file beside
+  the .pt (`{name}_best_acc.meta.json`).  The JAX harness reads only
+  full HF state dicts for CLIP and CLIPSeg, so a finetuned CLIP or
+  CLIPSeg file is this package's to load;
 - `save_resume` / `load_resume` round-trip `{name}_resume.pt`: the model
   state, the optimizer's state_dict, the step count and the JAX package's
   meta fields (epoch, best_score, stage, plateau_lr).  It holds tensors and
@@ -16,8 +23,9 @@ Counterpart of medseg_tpu/train/checkpoint.py, which writes orbax trees:
 
 from __future__ import annotations
 
+import json
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -31,11 +39,31 @@ def resume_path(save_dir: str, name: str) -> Path:
     return Path(save_dir) / f"{name}_resume.pt"
 
 
-def save_best(save_dir: str, name: str, model: nn.Module, seg: bool = False) -> Path:
+AUX_PREFIX = "aux."
+
+
+def save_best(save_dir: str, name: str, model: nn.Module, seg: bool = False,
+              meta: Optional[Dict] = None,
+              aux: Optional[Mapping[str, torch.Tensor]] = None) -> Path:
+    """aux: small non-parameter tensors the model needs at inference,
+    stored as `aux.<name>` float32 tensors; meta: a JSON sidecar."""
     path = Path(save_dir) / f"{name}_{'best_loss' if seg else 'best_acc'}.pt"
     path.parent.mkdir(parents=True, exist_ok=True)
-    torch.save(_cpu_state(model), path)
+    state = _cpu_state(model)
+    for k, v in (aux or {}).items():
+        state[AUX_PREFIX + k] = torch.as_tensor(v, dtype=torch.float32).cpu()
+    torch.save(state, path)
+    if meta is not None:
+        path.with_suffix(".meta.json").write_text(json.dumps(meta))
     return path
+
+
+def split_aux(sd: Mapping[str, torch.Tensor]
+              ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """(the state dict without its aux keys, {name: aux tensor})."""
+    state = {k: v for k, v in sd.items() if not k.startswith(AUX_PREFIX)}
+    aux = {k[len(AUX_PREFIX):]: v for k, v in sd.items() if k.startswith(AUX_PREFIX)}
+    return state, aux
 
 
 def save_resume(save_dir: str, name: str, model: nn.Module,

@@ -8,10 +8,13 @@ Counterpart of medseg_tpu/train/losses.py:
   form optax.sigmoid_binary_cross_entropy computes (:73), and its masked
   form over the valid rows of a padded batch (:43);
 - the batch IoU of the training loop's validation: one IoU over the whole
-  batch, not a mean over samples (:93), and its masked form (:103).
+  batch, not a mean over samples (:93), and its masked form (:103);
+- CLIPSeg's dice loss (sigmoid, smooth 1.0) and 0.5*BCE + 0.5*dice
+  (reference utils/clip_seg_finetuner.py:40-74): one dice over every
+  element of the batch, not a mean over samples (:56-90), and their masked
+  forms over the valid rows of a padded batch.
 The one-hot is a comparison with an arange on the logits' device, so
-nothing here waits for the card.  Dice and the combined loss come with the
-CLIPSeg finetuner (ROADMAP A.13).
+nothing here waits for the card.
 """
 
 from __future__ import annotations
@@ -87,3 +90,33 @@ def masked_batch_iou(probs: torch.Tensor, targets: torch.Tensor,
     inter = (p * t).sum()
     union = ((p + t) > 0).to(torch.float32).sum()
     return inter / (union + 1e-7)
+
+
+def masked_dice_loss(logits: torch.Tensor, targets: torch.Tensor, valid: torch.Tensor,
+                     smooth: float = 1.0) -> torch.Tensor:
+    """dice_loss over the valid rows only: pad rows leave every sum."""
+    v = _rows(valid, logits.dim())
+    p = torch.sigmoid(logits.to(torch.float32)) * v
+    t = targets.to(torch.float32) * v
+    inter = (p * t).sum()
+    return 1.0 - (2.0 * inter + smooth) / (p.sum() + t.sum() + smooth)
+
+
+def masked_combined_loss(logits: torch.Tensor, targets: torch.Tensor, valid: torch.Tensor,
+                         bce_weight: float = 0.5, dice_weight: float = 0.5) -> torch.Tensor:
+    return (bce_weight * masked_bce_with_logits(logits, targets, valid)
+            + dice_weight * masked_dice_loss(logits, targets, valid))
+
+
+def dice_loss(logits: torch.Tensor, targets: torch.Tensor, smooth: float = 1.0) -> torch.Tensor:
+    """1 - dice of sigmoid(logits) and the targets over the whole batch."""
+    p = torch.sigmoid(logits.to(torch.float32)).reshape(-1)
+    t = targets.to(torch.float32).reshape(-1)
+    inter = (p * t).sum()
+    return 1.0 - (2.0 * inter + smooth) / (p.sum() + t.sum() + smooth)
+
+
+def combined_loss(logits: torch.Tensor, targets: torch.Tensor,
+                  bce_weight: float = 0.5, dice_weight: float = 0.5) -> torch.Tensor:
+    return (bce_weight * bce_with_logits(logits, targets)
+            + dice_weight * dice_loss(logits, targets))

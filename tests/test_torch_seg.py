@@ -326,8 +326,10 @@ def test_finetune_filter_matches_jax_mask():
         assert (id(p) in trainable) == p.requires_grad == want, name
         assert want == (not _is_encoder(name)), name
     assert finetune_filter("ResNet18")("layer1.0.conv1.weight")
-    with pytest.raises(ValueError, match="A.13"):
-        finetune_filter("CLIPSeg")
+    # CLIPSeg's rule (ROADMAP A.13, held against JAX's mask in
+    # tests/test_torch_finetune.py): the decoder only
+    assert finetune_filter("CLIPSeg")("decoder.film_mul.weight")
+    assert not finetune_filter("CLIPSeg")("clip.vision_model.pre_layrnorm.weight")
 
 
 @functools.lru_cache(maxsize=None)
