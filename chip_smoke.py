@@ -17,10 +17,14 @@ Run from the root of a checkout.  It
    path's (B2's eval form f32 with CLIP's mean and std at 224^2 and 352^2
    for B=1 and 8) at tolerance 0, timed beside their bounds and
    `x.to(dtype)` of the same bytes;
-4. drives nine paths at full width, each with every launch count set to
-   0 just before it and read just after (clip and finetune before zoo:
-   late in a run profiler sessions lose records, and the zoo's readings
-   tolerate it):
+4. drives ten paths at full width, each with every launch count set to
+   0 just before it and read just after (ingest right after the first
+   three; clip and finetune before zoo: late in a run profiler sessions
+   lose records, and the zoo's readings tolerate it).  The CPU halves of
+   the seg and zoo paths' gate 4 (the float32 and float64 CPU runs and the
+   comparisons) run in one spawned CPU worker while the card works; it is
+   stopped while a host-clock reading is taken, and drained at the end of
+   the zoo path:
    - aug+infer: a synthetic packed set at 256px, BatchLoader(device_cache=
      True), augment_batch (one warp-kernel launch with the photometric
      epilogue) -> ResNet18 bf16 forward -> argmax -> classification_metrics;
@@ -34,6 +38,23 @@ Run from the root of a checkout.  It
    - fused stem: the warp kernel's planar bf16 output -> apply_with_stem_
      kernel (one stem-kernel launch) on ResNet18 bf16, against model(x) on
      the same batch in NHWC, both timed by device time in turns;
+   - ingest: from the dataset's PNGs to the demo through
+     medseg_tpu_torch.apps.cli.main in this process: 3 classes x 100
+     X-ray-like 299x299 PNGs (masks at 256x256, none for the last 5 of a
+     class), `split`, `pack` (the native C++ loader when g++ and libpng
+     build it, else cv2), `train ResNet18 ResNetUnet --epochs 2 --profile
+     DIR` at full width, `eval`, `eval --compare` and `parity --reference`
+     against copies of its own CSVs and against a copy with one metric
+     moved by 1 pp, and `demo --builtin --no-warmup` as a `python -m`
+     subprocess.  Gates: the CSVs partition the tree 240/30/30 by class;
+     the six caches' shapes, labels and masks; the native loader against
+     cv2 (bilinear within 1, the letterbox's pad 0, nearest masks under 1%
+     apart, the train split packed both ways) when it built; exactly one B1
+     launch a train step and one B2 a validation, eval and parity batch;
+     each trace names the warp kernel once a step; the reports read 0.000
+     and PASS on the copy, 1.000 and FAIL on the moved one (parity exits 0
+     and 1); the demo's page and CSS are the port's and /predict answers a
+     class.  Readings: pack img/s by route, each command's wall time;
    - train: train_model("ResNet18") bf16 on a 1280-sample synthetic set at
      256px (1024 to train in 8 shuffled steps of 128 from the device cache,
      256 to validate in 2 batches), 3 epochs with the stage switch after
@@ -163,12 +184,15 @@ JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import functools
 import json
 import math
 import os
 import re
+import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -176,6 +200,7 @@ import time
 import traceback
 import urllib.request
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -243,6 +268,37 @@ def card_label() -> str:
     return out.strip().splitlines()[0]
 
 
+class DeviceOp(NamedTuple):
+    """One name's device operations in a profiler session, as a row of
+    prof.key_averages(): how many, and their device time in microseconds."""
+    key: str
+    count: int
+    device_time_total: float
+
+
+def _device_ops(prof) -> list:
+    """The session's device operations by name, the rows of
+    prof.key_averages() whose device type is CUDA, user annotations left out
+    (optimizer.step's spans its kernels and the gaps between them on the
+    device: not an operation), read from the raw Kineto events.  The same
+    names, counts and times as key_averages() (an event's device time is
+    its span; an asynchronous one counts but adds no time), without building
+    its Python event tree over the session's host operations too: for a
+    session of a few training steps that tree took tens of seconds."""
+    from torch.autograd import DeviceType
+
+    rows = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != DeviceType.CUDA or e.is_user_annotation()
+                or e.is_hidden_event()):
+            continue
+        row = rows.setdefault(e.name(), [0, 0.0])
+        row[0] += 1
+        if not (e.is_async() or e.start_thread_id() != e.end_thread_id()):
+            row[1] += (e.end_ns() - e.start_ns()) / 1e3
+    return [DeviceOp(k, n, t) for k, (n, t) in rows.items()]
+
+
 def _sessions(fn, reps: int, sessions: int = PROFILE_SESSIONS):
     """`sessions` profiler sessions of `reps` calls of fn(), each after
     two warm-up calls and with PROFILE_MARGIN_S of host idle at both ends:
@@ -272,10 +328,7 @@ def _sessions(fn, reps: int, sessions: int = PROFILE_SESSIONS):
                 torch.cuda._sleep(MARKER_CYCLES)
                 torch.cuda.synchronize()
                 time.sleep(PROFILE_MARGIN_S)
-            # a user annotation (optimizer.step records one) spans its kernels
-            # and the gaps between them on the device: not an operation
-            events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
-                      and not getattr(e, "is_user_annotation", False)]
+            events = _device_ops(prof)
             if events:
                 break
             print("chip_smoke: a profiler session recorded no device operation, "
@@ -1001,7 +1054,7 @@ def _epoch_lines(logs, path: str, pattern=EPOCH_LINE):
 def _check_card_against_cpu(card: str, path: str, what: str, build, step, loss64,
                             images, targets, factor: float = 2.0, card64: bool = False,
                             bf16: bool = True, zero_grad=None, grad_floor: float = 0.0,
-                            update_floor: float = 0.0):
+                            update_floor: float = 0.0, recipe=None):
     """Gates 4 and 5 of a train path: three float32 steps (TF32 off) on the
     card and on the CPU through the port's own step, from the same weights
     on one pre-augmented batch; then one bf16 step's loss against the
@@ -1047,35 +1100,80 @@ def _check_card_against_cpu(card: str, path: str, what: str, build, step, loss64
     steps) and every element within the AdamW bound 2*3*lr: AdamW moves an
     element with a gradient at float32's noise by up to lr a step either
     way, so such elements set the distance when the CPU's run happens to
-    take their signs as float64 does."""
-    runs = {}
-    for run, device in (("card", "cuda"), ("cpu", "cpu")):
-        model, opt = build(device, torch.float32)
+    take their signs as float64 does.
+
+    recipe: (kind, name) of _RECIPES, whose build, step and loss64 these
+    are.  With a recipe and a CPU worker running (_CpuWorker), the CPU's
+    two runs and the comparison go to the worker, which this process's
+    card half hands them through a file; their lines are printed, and a
+    failure fails the run, when the worker is drained (_drain_cpu_work).
+    Gate 5 and the card's runs take place here at once either way."""
+    opts = dict(card=card, path=path, what=what, factor=factor, card64=card64,
+                grad_floor=grad_floor, update_floor=update_floor)
+    runs = {"card": _parity_run(build, step, loss64, images, targets, "cuda", torch.float32)}
+    if card64:
+        runs["card float64"] = _parity_run(build, step, loss64, images, targets, "cuda",
+                                           torch.float64)
+    if recipe is not None and _WORKER is not None:
+        _WORKER.submit(dict(opts, recipe=recipe), images, targets, runs)
+    else:
+        runs["cpu"] = _parity_run(build, step, loss64, images, targets, "cpu", torch.float32)
+        runs["float64"] = _parity_run(build, step, loss64, images, targets, "cpu",
+                                      torch.float64, keep_init=update_floor > 0)
+        lines, failure = _compare_runs(runs, zero_grad=zero_grad, **opts)
+        print("\n".join(lines))
+        if failure:
+            fail(failure)
+    if not bf16:
+        return
+    l_card = runs["card"][0]
+    model, opt = build("cuda", torch.bfloat16)
+    bf16_loss = step(model, opt, images.cuda(), targets.cuda(),
+                     torch.Generator(device="cuda").manual_seed(SEED)).item()
+    rel = abs(bf16_loss - l_card[0]) / abs(l_card[0])
+    print(f"[{card}] {path}, bf16 vs float32 step loss on the same weights and "
+          f"batch: {bf16_loss:.5f} vs {l_card[0]:.5f}, rel {rel:.4f} tol 0.05")
+    if not rel <= 0.05:
+        fail(f"{path}: bf16 loss {bf16_loss} is not within 5% of float32's {l_card[0]}")
+
+
+def _parity_run(build, step, loss64, images, targets, device: str, dtype,
+                keep_init: bool = False):
+    """One run of gate 4: three steps from the same weights on one batch,
+    through the port's step in float32 or the loss written out in float64.
+    Returns (losses, step-1 gradients, state after step 3, and the
+    initial parameters when keep_init, else None), all on the CPU."""
+    model, opt = build(device, dtype)
+    init = ({n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+            if keep_init else None)
+    losses, grads = [], None
+    if dtype == torch.float64:
+        x, y = images.to(device, dtype), targets.to(device)
+    else:
         gen = torch.Generator(device=device).manual_seed(SEED)
         x, y = images.to(device), targets.to(device)
-        losses, grads = [], None
-        for i in range(3):
-            losses.append(step(model, opt, x, y, gen).item())
-            if i == 0:
-                grads = {n: p.grad.cpu() for n, p in model.named_parameters()
-                         if p.grad is not None}
-        runs[run] = (losses, grads, {k: v.cpu() for k, v in model.state_dict().items()})
-    f64 = torch.float64
-    for run, device in (("float64", "cpu"),) + ((("card float64", "cuda"),) if card64 else ()):
-        model, opt = build(device, f64)
-        if run == "float64":
-            init64 = {n: p.detach().clone() for n, p in model.named_parameters()}
-        losses, grads = [], None
-        for i in range(3):
-            loss = loss64(model, images.to(device, f64), targets.to(device))
+    for i in range(3):
+        if dtype == torch.float64:
+            loss = loss64(model, x, y)
             opt.zero_grad(set_to_none=True)
             loss.backward()
             opt.step()
-            losses.append(loss.item())
-            if i == 0:
-                grads = {n: p.grad.cpu() for n, p in model.named_parameters()
-                         if p.grad is not None}
-        runs[run] = (losses, grads, {k: v.cpu() for k, v in model.state_dict().items()})
+        else:
+            loss = step(model, opt, x, y, gen)
+        losses.append(loss.item())
+        if i == 0:
+            grads = {n: p.grad.cpu() for n, p in model.named_parameters()
+                     if p.grad is not None}
+    return losses, grads, {k: v.cpu() for k, v in model.state_dict().items()}, init
+
+
+def _compare_runs(runs: dict, card: str, path: str, what: str, factor: float,
+                  card64: bool, grad_floor: float, update_floor: float, zero_grad=None):
+    """Gate 4's comparisons of the runs of _check_card_against_cpu ("card",
+    "cpu", "float64" and with card64 "card float64"): returns (the lines
+    to print, the failure or None)."""
+    lines = []
+    init64 = runs["float64"][3]
 
     def l2(ts) -> float:
         return math.sqrt(sum(float(t.double().square().sum()) for t in ts))
@@ -1097,9 +1195,9 @@ def _check_card_against_cpu(card: str, path: str, what: str, build, step, loss64
                          if k.endswith(("running_mean", "running_var"))}
     l_card, l_cpu, l_ref = (runs[r][0] for r in ("card", "cpu", "float64"))
     gmax = max(float(g.abs().max()) for g in runs["float64"][1].values())
-    print(f"[{card}] {path}, card vs CPU float32 (TF32 off), {what}, lr {PARITY_LR}, "
-          f"3 steps: losses {l_card} vs {l_cpu} (float64 {l_ref}); largest step-1 |g| "
-          f"{gmax:.3e}")
+    lines.append(f"[{card}] {path}, card vs CPU float32 (TF32 off), {what}, lr {PARITY_LR}, "
+                 f"3 steps: losses {l_card} vs {l_cpu} (float64 {l_ref}); largest step-1 |g| "
+                 f"{gmax:.3e}")
     ok = True
     for part, pick in (("step-1 clipped gradients", step1),
                        ("parameters after step 3", step3),
@@ -1124,48 +1222,217 @@ def _check_card_against_cpu(card: str, path: str, what: str, build, step, loss64
                         f"({moved:.3e}; largest element: the AdamW bound 2*3*lr)")
         passed = d["max"] <= tol["max"] and d["l2"] <= tol["l2"]
         ok &= passed
-        print(f"[{card}] {path}, {part}: card vs float64 max_abs_err="
-              f"{d['max']:.3e}, L2 {d['l2']:.3e} ({d['rel']:.3e} of float64's); tol "
-              f"{factor:g}x the CPU float32's distance from float64{rounding}: max "
-              f"{tol['max']:.3e}, L2 {tol['l2']:.3e}; CPU float32 vs float64 max "
-              f"{floor['max']:.3e}, L2 {floor['l2']:.3e}; card vs CPU max "
-              f"{cc['max']:.3e}, L2 {cc['l2']:.3e}; farthest tensors (card vs "
-              f"float64, relative L2) {d['worst']}: {'pass' if passed else 'FAIL'}")
+        lines.append(f"[{card}] {path}, {part}: card vs float64 max_abs_err="
+                     f"{d['max']:.3e}, L2 {d['l2']:.3e} ({d['rel']:.3e} of float64's); tol "
+                     f"{factor:g}x the CPU float32's distance from float64{rounding}: max "
+                     f"{tol['max']:.3e}, L2 {tol['l2']:.3e}; CPU float32 vs float64 max "
+                     f"{floor['max']:.3e}, L2 {floor['l2']:.3e}; card vs CPU max "
+                     f"{cc['max']:.3e}, L2 {cc['l2']:.3e}; farthest tensors (card vs "
+                     f"float64, relative L2) {d['worst']}: {'pass' if passed else 'FAIL'}")
         if card64:
             d64 = dist("card float64", "float64", pick)
             scale = max(float(t.abs().max()) for t in pick(runs["float64"]).values())
             passed = d64["max"] <= 1e-9 * scale
             ok &= passed
-            print(f"[{card}] {path}, {part} in float64: card vs CPU max_abs_err="
-                  f"{d64['max']:.3e} tol {1e-9 * scale:.3e} (1e-9 of the largest "
-                  f"magnitude, {scale:.3e}): {'pass' if passed else 'FAIL'}")
+            lines.append(f"[{card}] {path}, {part} in float64: card vs CPU max_abs_err="
+                         f"{d64['max']:.3e} tol {1e-9 * scale:.3e} (1e-9 of the largest "
+                         f"magnitude, {scale:.3e}): {'pass' if passed else 'FAIL'}")
     zeros = [n for n in runs["cpu"][1] if zero_grad(n)]
     if zeros:
         noise = {r: max(float(runs[r][1][n].abs().max()) for n in zeros)
                  for r in ("card", "cpu", "float64")}
         passed = max(noise["card"], noise["cpu"]) <= 1e-4 * gmax
         ok &= passed
-        print(f"[{card}] {path}, the {len(zeros)} gradients zero in exact arithmetic "
-              f"(left out above): largest |g| card {noise['card']:.3e}, CPU "
-              f"{noise['cpu']:.3e}, float64 {noise['float64']:.3e}; tol {1e-4 * gmax:.3e} "
-              f"(1e-4 of the largest |g|): {'pass' if passed else 'FAIL'}")
+        lines.append(f"[{card}] {path}, the {len(zeros)} gradients zero in exact arithmetic "
+                     f"(left out above): largest |g| card {noise['card']:.3e}, CPU "
+                     f"{noise['cpu']:.3e}, float64 {noise['float64']:.3e}; tol {1e-4 * gmax:.3e} "
+                     f"(1e-4 of the largest |g|): {'pass' if passed else 'FAIL'}")
     # AdamW moves an element by at most ~lr a step whatever its gradient
     p_max = dist("card", "float64", lambda run: {n: run[2][n] for n in runs["cpu"][1]})["max"]
     if not ok or p_max > 2 * 3 * PARITY_LR:
-        fail(f"{path}: the card's float32 steps are farther from float64 "
-             f"than {factor:g}x the CPU's, its float64 steps are not the CPU's, or a "
-             f"parameter moved by {p_max:.3e} > 2*3*lr")
+        return lines, (f"{path}: the card's float32 steps are farther from float64 "
+                       f"than {factor:g}x the CPU's, its float64 steps are not the CPU's, "
+                       f"or a parameter moved by {p_max:.3e} > 2*3*lr")
+    return lines, None
 
-    if not bf16:
+
+class _CpuWorker:
+    """One spawned process that takes the CPU halves of gate 4 for the seg
+    and zoo paths (_check_card_against_cpu with a recipe): the float32 and
+    float64 runs of three steps on the CPU, and the comparisons, while this
+    process drives the card.  Those CPU runs were most of the zoo's gates 4
+    and 5 (124 s of a 747 s run before they moved here, VGG's 33 s each).
+    It computes with as many threads as this process would (the CPU float32
+    run's distance from float64, gate 4's yardstick, depends on its
+    reduction order: VGG19's gradients read 1.9e-2 of float64's L2 with 8
+    threads and 3.2e-4 with 4, while the card's read 5.7e-3 both times), is
+    stopped (SIGSTOP) while this process takes a host-clock reading
+    (host_clock) and continued after, and ends with the run.  A job's
+    tensors (the state, the batch and the card's runs: up to 3.8 GB for
+    VGG) reach it as torch.save bytes in a shared-memory block, whose name
+    goes through the queue: not as a file, to keep the run's disk writes
+    down (job files added ~12 GB a run), and not through the pipe, whose
+    writer thread waits for this process's interpreter lock between 64 KiB
+    writes (the zoo path then waited 210 s for the worker).  Its lines come
+    back to be printed when the worker is drained."""
+
+    def __init__(self):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.threads = torch.get_num_threads()
+        self.jobs, self.results = ctx.Queue(), ctx.Queue()
+        self.proc = ctx.Process(target=_worker_main, daemon=True,
+                                args=(self.jobs, self.results, self.threads))
+        self.proc.start()
+        self.pending = {}  # job id -> path
+        self.blocks = {}  # job id -> its shared-memory block, until drained
+        self.submitted = 0
+        self.paused = 0
+        self.paused_s = 0.0
+        self._t_pause = 0.0
+
+    def submit(self, opts: dict, images, targets, runs: dict) -> None:
+        import io
+        from multiprocessing import shared_memory
+
+        kind, name, state = opts["recipe"]
+        payload = io.BytesIO()
+        torch.save({"state": state, "images": images, "targets": targets, "runs": runs},
+                   payload)
+        data = payload.getbuffer()
+        block = shared_memory.SharedMemory(create=True, size=len(data))
+        block.buf[:len(data)] = data
+        del data
+        job = dict(opts, id=self.submitted, recipe=(kind, name), block=block.name,
+                   size=payload.tell())
+        self.blocks[job["id"]] = block
+        self.pending[job["id"]] = opts["path"]
+        self.submitted += 1
+        self.jobs.put(job)
+
+    def pause(self) -> None:
+        if self.paused == 0 and self.proc.is_alive():
+            os.kill(self.proc.pid, signal.SIGSTOP)
+            self._t_pause = time.perf_counter()
+        self.paused += 1
+
+    def resume(self) -> None:
+        self.paused -= 1
+        if self.paused == 0 and self.proc.is_alive():
+            os.kill(self.proc.pid, signal.SIGCONT)
+            self.paused_s += time.perf_counter() - self._t_pause
+
+    def drain(self, card: str) -> None:
+        """Waits for every job, prints its lines and fails on its failure."""
+        import queue
+
+        if not self.pending:
+            return
+        t0 = time.perf_counter()
+        waiting = dict(self.pending)
+        while self.pending:
+            try:
+                job_id, lines, failure = self.results.get(timeout=5)
+            except queue.Empty:
+                if not self.proc.is_alive():
+                    fail(f"the CPU worker died (exit {self.proc.exitcode}) with gate 4 of "
+                         f"{sorted(set(self.pending.values()))} to take")
+                continue
+            self.pending.pop(job_id)
+            self._release(job_id)
+            print("\n".join(lines))
+            if failure:
+                fail(failure)
+        print(f"[{card}] CPU worker ({self.threads} threads): gate 4's CPU halves of "
+              f"{sorted(set(waiting.values()))} done; waited {time.perf_counter() - t0:.1f} "
+              f"s for them at the end, the worker stopped {self.paused_s:.1f} s in all for "
+              f"host-clock readings")
+
+    def _release(self, job_id: int) -> None:
+        block = self.blocks.pop(job_id)
+        block.close()
+        block.unlink()
+
+    def close(self) -> None:
+        for job_id in list(self.blocks):
+            self._release(job_id)
+        if self.proc.is_alive():
+            os.kill(self.proc.pid, signal.SIGCONT)
+            self.proc.terminate()
+            self.proc.join(10)
+            if self.proc.is_alive():
+                self.proc.kill()
+                self.proc.join()
+        for q in (self.jobs, self.results):
+            q.cancel_join_thread()
+            q.close()
+
+
+_WORKER = None  # main()'s _CpuWorker
+
+
+@contextlib.contextmanager
+def host_clock():
+    """Keeps the CPU worker stopped while a host-clock reading is taken."""
+    worker = _WORKER
+    if worker is None:
+        yield
         return
-    model, opt = build("cuda", torch.bfloat16)
-    bf16_loss = step(model, opt, images.cuda(), targets.cuda(),
-                     torch.Generator(device="cuda").manual_seed(SEED)).item()
-    rel = abs(bf16_loss - l_card[0]) / abs(l_card[0])
-    print(f"[{card}] {path}, bf16 vs float32 step loss on the same weights and "
-          f"batch: {bf16_loss:.5f} vs {l_card[0]:.5f}, rel {rel:.4f} tol 0.05")
-    if not rel <= 0.05:
-        fail(f"{path}: bf16 loss {bf16_loss} is not within 5% of float32's {l_card[0]}")
+    worker.pause()
+    try:
+        yield
+    finally:
+        worker.resume()
+
+
+def _on_host_clock(fn):
+    """fn under host_clock: a function whose every call is a reading."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with host_clock():
+            return fn(*args, **kwargs)
+    return wrapped
+
+
+def _worker_main(jobs, results, threads: int) -> None:
+    """The CPU worker's loop over its jobs (_cpu_half)."""
+    torch.set_num_threads(threads)
+    for job in iter(jobs.get, None):
+        try:
+            lines, failure = _cpu_half(job)
+        except Exception:  # noqa: BLE001 — reported as the gate's failure
+            lines, failure = [], (f"{job['path']}: gate 4's CPU half raised:\n"
+                                  f"{traceback.format_exc()}")
+        results.put((job["id"], lines, failure))
+
+
+def _cpu_half(job: dict):
+    """In the CPU worker: the job's float32 and float64 runs on the CPU
+    from its recipe, then gate 4's comparisons with the card's runs.
+    Returns (lines, failure or None)."""
+    import io
+    from multiprocessing import shared_memory
+
+    t0 = time.perf_counter()
+    block = shared_memory.SharedMemory(name=job["block"])  # unlinked by _release
+    try:
+        data = torch.load(io.BytesIO(block.buf[:job["size"]]), weights_only=True)
+    finally:
+        block.close()
+    kind, name = job["recipe"]
+    recipe = {"seg": _seg_recipe, "zoo": _zoo_recipe}[kind]
+    build, step, loss64 = recipe(name, data["state"])
+    images, targets, runs = data["images"], data["targets"], data["runs"]
+    runs["cpu"] = _parity_run(build, step, loss64, images, targets, "cpu", torch.float32)
+    runs["float64"] = _parity_run(build, step, loss64, images, targets, "cpu", torch.float64,
+                                  keep_init=job["update_floor"] > 0)
+    opts = {k: job[k] for k in ("card", "path", "what", "factor", "card64", "grad_floor",
+                                "update_floor")}
+    lines, failure = _compare_runs(runs, **opts)
+    lines.append(f"[{job['card']}] {job['path']}: gate 4's CPU half took "
+                 f"{time.perf_counter() - t0:.1f} s in the CPU worker (stops included)")
+    return lines, failure
 
 
 def _cls_parity(card: str, state: dict, images, labels):
@@ -1290,11 +1557,12 @@ def _steady_steps(card: str, path: str, what: str, batch: int, loader, step, pre
         step(*next_batch())
     torch.cuda.synchronize()
     loss_acc = torch.zeros((), device="cuda")
-    t0 = time.perf_counter()
-    for _ in range(rate_steps):
-        loss_acc += step(*next_batch())
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / rate_steps
+    with host_clock():
+        t0 = time.perf_counter()
+        for _ in range(rate_steps):
+            loss_acc += step(*next_batch())
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / rate_steps
     if not math.isfinite(loss_acc.item()):
         fail(f"{path}: a step's loss is not finite")
     print(f"[{card}] {path}, {what}: {batch / step_s:.1f} img/s ({step_s * 1e3:.3f} "
@@ -1479,9 +1747,9 @@ def _check_frozen_encoder(card: str, model, init: dict) -> None:
           f"decoder biases)")
 
 
-def _seg_parity(card: str, state: dict, images, masks):
-    """Gates 4 and 5 of the seg path: ResNetUnet with the encoder frozen,
-    BCE with logits."""
+def _seg_recipe(name: str, state: dict):
+    """Gate 4's (build, step, loss64) for ResNetUnet from `state`: the
+    encoder frozen, BCE with logits (see _check_card_against_cpu)."""
     import torch.nn.functional as F
 
     from medseg_tpu_torch.models.resnet_unet import resnet_unet
@@ -1494,16 +1762,23 @@ def _seg_parity(card: str, state: dict, images, masks):
         if dtype == torch.float64:
             model.double()
         return model, S.build_optimizer(
-            PARITY_LR, 5e-4, 1.0, set_trainable(model.train(), finetune_filter("ResNetUnet")))
+            PARITY_LR, 5e-4, 1.0, set_trainable(model.train(), finetune_filter(name)))
 
     def loss64(model, x, y):
         out = model(x)
         t = y.to(out.dtype)
         return -(t * F.logsigmoid(out) + (1.0 - t) * F.logsigmoid(-out)).mean()
 
+    return build, S.seg_train_step, loss64
+
+
+def _seg_parity(card: str, state: dict, images, masks):
+    """Gates 4 and 5 of the seg path: ResNetUnet with the encoder frozen,
+    BCE with logits; the CPU half in the CPU worker."""
     _check_card_against_cpu(
         card, "seg path", f"ResNetUnet B={SEG_PARITY_BATCH} at {SIZE}px, encoder frozen",
-        build, S.seg_train_step, loss64, images, masks)
+        *_seg_recipe("ResNetUnet", state), images, masks,
+        recipe=("seg", "ResNetUnet", state))
 
 
 def _mask_gate(card: str, ds) -> None:
@@ -1645,6 +1920,7 @@ def _warp_c4_reading(card: str) -> None:
               f"{b_ms / ms:.0%} of it")
 
 
+@_on_host_clock
 def _seg_e2e_reading(card: str, state: dict) -> None:
     """A reading that gates nothing but its launch count and output: the
     JAX bench's seg_e2e program (4-plane augment_batch -> ResNetUnet bf16
@@ -1805,7 +2081,7 @@ def run_seg_path(card: str):
     images, masks = next(iter(val_loader))
     x, m = augment_batch(gen, images[:SEG_PARITY_BATCH].contiguous(),
                          masks[:SEG_PARITY_BATCH].contiguous())
-    parity = (trained, x.cpu(), m.cpu())
+    _seg_parity(card, trained, x.cpu(), m.cpu())  # the CPU half runs in the worker
 
     # the seg step at full width: rate, synchronization, device time
     model = res.model.train()
@@ -1836,7 +2112,6 @@ def run_seg_path(card: str):
     _warp_c4_reading(card)
     _seg_e2e_reading(card, trained)
     _mask_gate(card, ds)
-    _seg_parity(card, *parity)
     if sync_fault is not None:
         fail(f"seg path: a seg step synchronized with the host:\n{sync_fault}")
     return launches
@@ -1955,6 +2230,7 @@ def _card_against_cpu(card: str, pipe, cpu_pipe, arrays, seg_name: str = "ResNet
         fail(f"{path} gate 2: the card's Pipeline disagrees with the CPU's")
 
 
+@_on_host_clock
 def _device_split(card: str, pipe, arrays, host_group_ms: float) -> None:
     """A reading: the device time of one B=8 COVID group (process_batch)
     and of its parts, beside the host-clock group time."""
@@ -2092,6 +2368,7 @@ def _serve_gates(card: str, servers: dict, ports: dict, requests, bodies) -> Non
               f"{health['models']}")
 
 
+@_on_host_clock
 def _serve_readings(card: str, server, port: int, requests, bodies, flag_text: str) -> None:
     """Latency of single requests (p50, p99) and its host-clock split,
     bursts' throughput, the synchronizations of one group and the device
@@ -2177,6 +2454,7 @@ def _serve_readings(card: str, server, port: int, requests, bodies, flag_text: s
         _device_split(card, pipe, group, float(np.median(host)))
 
 
+@_on_host_clock
 def _predict_gate(card: str, roots: dict, rng, flag_text: str) -> None:
     """Gate 5: batch_predict over a directory of PREDICT_IMAGES PNGs at
     299x299 in batches of PREDICT_BATCH, with each weights root."""
@@ -2254,6 +2532,7 @@ def _zoo_data(name: str, size: int = SIZE, steps: int = ZOO_STEPS, val: int = ZO
                         device_cache=True))
 
 
+@_on_host_clock
 def _zoo_train(card: str, name: str, root: str):
     """train_model(name) bf16 at 256px over ZOO_EPOCHS epochs (VGG: the stage
     switch after epoch 1), then a resume to one more; gates 1-3: the logs,
@@ -2365,24 +2644,13 @@ def _zoo_readings(card: str, name: str, model, loader, sync_gate: bool):
     return sync_fault
 
 
-def _zoo_parity(card: str, name: str, state: dict) -> None:
-    """Gates 4 and 5 for one zoo model at ZOO_PARITY_SIZE px, B=ZOO_PARITY_BATCH,
-    full width (float64 R2 steps at 256px are too slow for the CPU): the
-    trained weights, VGG's dropouts off, every parameter trainable.
-
-    Gate 4 runs the steps in float64 on the card too, held to the CPU's
-    float64 within 1e-9 (the card's arithmetic is the CPU's: 1e-13 apart
-    or closer).  The R2 models' float32 runs may be 7x, not 2x, the CPU
-    float32's distance from float64: over 15 readings of the two R2
-    models (gradients, parameters, statistics; trained and initial
-    weights) the card's distance was 0.09-3.3x the CPU's, float32 noise
-    through 108 training BatchNorms a forward whose statistics the card
-    sums in float32 and the CPU in float64; 7 is twice the largest ratio
-    seen, as 2 is for the ResNets (at most 1.1x seen)."""
+def _zoo_recipe(name: str, state: dict):
+    """Gate 4's (build, step, loss64) for a zoo model from `state`: VGG's
+    dropouts off, every parameter trainable, label-smoothed CE or BCE with
+    logits (see _check_card_against_cpu)."""
     import torch.nn.functional as F
 
     from medseg_tpu_torch.core.registry import get_model
-    from medseg_tpu_torch.ops.augment import augment_batch
     from medseg_tpu_torch.train import steps as S
     from medseg_tpu_torch.train.freeze import all_trainable, set_trainable
 
@@ -2407,22 +2675,44 @@ def _zoo_parity(card: str, name: str, state: dict) -> None:
         target = (y[:, None] == torch.arange(k, device=y.device)).to(out.dtype) * 0.9 + 0.1 / k
         return -(target * torch.log_softmax(out, -1)).sum(-1).mean()
 
+    if seg:
+        return build, S.seg_train_step, loss64
+    return build, (lambda m, o, x, y, g: S.cls_train_step(m, o, x, y, g, 0.1)[0]), loss64
+
+
+def _zoo_parity(card: str, name: str, state: dict) -> None:
+    """Gates 4 and 5 for one zoo model at ZOO_PARITY_SIZE px, B=ZOO_PARITY_BATCH,
+    full width (float64 R2 steps at 256px are too slow for the CPU): the
+    trained weights, VGG's dropouts off, every parameter trainable.
+
+    Gate 4 runs the steps in float64 on the card too, held to the CPU's
+    float64 within 1e-9 (the card's arithmetic is the CPU's: 1e-13 apart
+    or closer).  The R2 models' float32 runs may be 7x, not 2x, the CPU
+    float32's distance from float64: over 15 readings of the two R2
+    models (gradients, parameters, statistics; trained and initial
+    weights) the card's distance was 0.09-3.3x the CPU's, float32 noise
+    through 108 training BatchNorms a forward whose statistics the card
+    sums in float32 and the CPU in float64; 7 is twice the largest ratio
+    seen, as 2 is for the ResNets (at most 1.1x seen).  The CPU half runs in
+    the CPU worker."""
+    from medseg_tpu_torch.ops.augment import augment_batch
+
     loader, _ = _zoo_data(name, size=ZOO_PARITY_SIZE, steps=1, val=1,
                           batch=ZOO_PARITY_BATCH)
     images, targets = next(iter(loader))
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    if seg:
+    if name in ZOO_SEG:
         x, y = augment_batch(gen, images, targets)
-        step = S.seg_train_step
     else:
         x, y = augment_batch(gen, images)[0], targets
-        step = lambda m, o, x, y, g: S.cls_train_step(m, o, x, y, g, 0.1)[0]  # noqa: E731
     _check_card_against_cpu(
         card, f"zoo path, {name}", f"{name} B={ZOO_PARITY_BATCH} at {ZOO_PARITY_SIZE}px, "
-        f"every parameter trainable", build, step, loss64, x.cpu(), y.cpu(),
-        factor=7.0 if name.startswith("R2") else 2.0, card64=True)
+        f"every parameter trainable", *_zoo_recipe(name, state), x.cpu(), y.cpu(),
+        factor=7.0 if name.startswith("R2") else 2.0, card64=True,
+        recipe=("zoo", name, state))
 
 
+@_on_host_clock
 def _zoo_eval(card: str, root: str) -> None:
     """The five best .pt through test_all_models (one B2 launch a batch of
     EVAL_BATCH; the other models of the zoo have no weights and are
@@ -2656,10 +2946,11 @@ def _zoo_serve(card: str) -> None:
                 pipe._load_models("VGG16", "AttentionUNet")
                 pipe.process_batch(group, "AttentionUNet")
                 host = []
-                for _ in range(5):
-                    t0 = time.perf_counter()
-                    pipe.process_batch(group, "AttentionUNet")
-                    host.append((time.perf_counter() - t0) * 1e3)
+                with host_clock():
+                    for _ in range(5):
+                        t0 = time.perf_counter()
+                        pipe.process_batch(group, "AttentionUNet")
+                        host.append((time.perf_counter() - t0) * 1e3)
                 times, top = session_times(lambda: pipe.process_batch(group, "AttentionUNet"),
                                            3, what="a zoo group", lost=3)
             dev_ms, host_ms = float(np.median(times)), float(np.median(host))
@@ -2692,23 +2983,27 @@ def run_zoo_path(card: str) -> None:
             t0 = time.perf_counter()
             model, train_loader = _zoo_train(card, name, root)
             state = {k: v.cpu() for k, v in model.state_dict().items()}
+            t1 = time.perf_counter()
+            _zoo_parity(card, name, state)  # the CPU half runs in the worker
+            t2 = time.perf_counter()
             fault = _zoo_readings(card, name, model, train_loader, sync_gate=True)
             if fault is not None:
                 faults[name] = fault
             if name == "AttentionUNet":
                 big, _ = _zoo_data(name, steps=2, val=1, batch=ZOO_BIG_SEG_BATCH)
                 _zoo_readings(card, name, model, big, sync_gate=False)
-            del model, train_loader
+            del model, train_loader, state
             torch.cuda.empty_cache()
-            t1 = time.perf_counter()
-            _zoo_parity(card, name, state)
             print(f"[{card}] zoo path, {name}: {time.perf_counter() - t0:.1f} s in all, "
-                  f"gates 4 and 5 {time.perf_counter() - t1:.1f} s of it")
+                  f"gates 4 and 5 {t2 - t1:.1f} s of it (the card's half; the CPU's in "
+                  f"the worker)")
         t0 = time.perf_counter()
         _zoo_eval(card, root)
     t1 = time.perf_counter()
     _zoo_serve(card)
     print(f"[{card}] zoo path: eval {t1 - t0:.1f} s, serve {time.perf_counter() - t1:.1f} s")
+    if _WORKER is not None:
+        _WORKER.drain(card)
     if faults:
         fail("zoo path: a train step synchronized with the host:\n"
              + "\n".join(f"{n}: {f}" for n, f in faults.items()))
@@ -2793,6 +3088,7 @@ def _clip_weights(card: str, base: Path, probe: torch.Tensor) -> dict:
     return {"eval": base / "clip", "serve": serve, "ids": ids}
 
 
+@_on_host_clock
 def _clip_eval(card: str, root: Path) -> None:
     """`medseg eval` with CLIP and CLIPSeg: test_all_models over a synthetic
     256px split (the other eight models have no weights), with no B2
@@ -3053,6 +3349,7 @@ def _clip_device_split(card: str, pipe, requests) -> None:
               f"operations (ms): {[(k, round(v, 4)) for k, v in costly]}")
 
 
+@_on_host_clock
 def _clip_latency(card: str, server, port: int, requests) -> None:
     """Readings: p50/p99 of CLIP_REQUESTS sequential 299x299 requests
     through CLIP + CLIPSeg over loopback, and one request's stages by host
@@ -3186,10 +3483,13 @@ FT_EPOCH_LINES = {
                           r"\| ValLoss (?P<val>\S+) \| ValDice \S+")}
 
 
-def _cli(card: str, argv: list, expected: dict) -> str:
+@_on_host_clock
+def _cli(card: str, argv: list, expected: dict, path: str = "finetune path",
+         code: int = 0) -> str:
     """cli.main(argv) in this process, its standard output captured and its
-    epoch and summary lines printed; the launch counts set to 0 before and
-    read after (read_counts).  Returns the output."""
+    epoch, summary and report lines printed; the launch counts set to 0
+    before and read after (read_counts); fails unless it exits with `code`
+    (0: it returns).  Returns the output."""
     import contextlib
     import io
 
@@ -3199,15 +3499,23 @@ def _cli(card: str, argv: list, expected: dict) -> str:
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
+    got = 0
     with contextlib.redirect_stdout(out):
-        cli.main(argv)
+        try:
+            cli.main(argv)
+        except SystemExit as e:
+            got = e.code
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    read_counts(f"finetune path, cli {argv[0]}", expected)
     text = out.getvalue()
+    if got != code:
+        fail(f"{path}: cli {' '.join(argv)} exited {got}, not {code}:\n{text[-3000:]}")
+    read_counts(f"{path}, cli {argv[0]}", expected)
     keep = [line for line in text.splitlines()
-            if re.match(r"\[\w+\] Ep\d|Saved best|--- |[A-Za-z0-9]+ +: |\[WARNING\]", line)]
-    print(f"[{card}] finetune path, cli {' '.join(argv[:3])} ...: {wall:.3f} s (host "
+            if re.match(r"\[\w+\] Ep\d|Saved best|--- |[A-Za-z0-9]+ +: |packed |"
+                        r"\[WARNING\](?! Weights not found)|Total images|=== Parity|"
+                        r"max \|delta\||PARITY|MISSING", line)]
+    print(f"[{card}] {path}, cli {' '.join(argv[:3])} ...: {wall:.3f} s (host "
           f"clock); launches {expected}\n" + "\n".join(f"  {line}" for line in keep))
     return text
 
@@ -3650,12 +3958,396 @@ def run_finetune_path(card: str) -> dict:
     return launches
 
 
+INGEST_PER_CLASS = 100  # ingest path: 299x299 PNGs a class (the Kaggle set's size)
+INGEST_UNMASKED = 5     # ... the last of each class have no mask
+INGEST_MASK = 256       # ... masks at 256x256, as the Kaggle set's lung masks
+INGEST_EPOCHS = 2       # `train ResNet18 ResNetUnet --epochs 2 --profile DIR`
+INGEST_PROBES = ((299, 299), (128, 200), (200, 128), (64, 64))  # native vs cv2
+
+
+def _ingest_tree(root: Path) -> dict:
+    """The dataset's PNG tree: dataset/<class>/images/<class>-<i>.png, X-ray
+    textured 299x299 RGB, each class its own brightness; masks at
+    INGEST_MASK, a random ellipse of 255 on 0, for all but the last
+    INGEST_UNMASKED images of a class.  Returns {id: class}."""
+    import cv2
+
+    from medseg_tpu_torch.core.config import CLASSES
+
+    rng = np.random.default_rng(SEED)
+    ids = {}
+    for k, cls in enumerate(CLASSES):
+        (root / cls / "images").mkdir(parents=True)
+        (root / cls / "masks").mkdir(parents=True)
+        for i in range(INGEST_PER_CLASS):
+            img = np.clip(_xray_like(rng, 299, 299).astype(np.int16) + 30 * (k - 1), 0, 255)
+            cv2.imwrite(str(root / cls / "images" / f"{cls}-{i}.png"), img.astype(np.uint8))
+            ids[f"{cls}-{i}"] = cls
+            if i < INGEST_PER_CLASS - INGEST_UNMASKED:
+                mask = np.zeros((INGEST_MASK, INGEST_MASK), np.uint8)
+                cy, cx = rng.integers(80, 176, 2)
+                ry, rx = rng.integers(30, 70, 2)
+                y, x = np.mgrid[0:INGEST_MASK, 0:INGEST_MASK]
+                mask[((y - cy) / ry) ** 2 + ((x - cx) / rx) ** 2 <= 1.0] = 255
+                cv2.imwrite(str(root / cls / "masks" / f"{cls}-{i}.png"), mask)
+    return ids
+
+
+def _ingest_splits(card: str, root: Path, ids: dict) -> dict:
+    """The split CSVs partition the tree 80/10/10, stratified: returns
+    {split: [(id, class), ...]} in file order."""
+    from medseg_tpu_torch.core.config import CLASSES
+
+    rows = {}
+    for split in ("train", "val", "test"):
+        with open(root / "splits" / f"{split}.csv", newline="") as f:
+            reader = csv.reader(f)
+            if next(reader) != ["id", "class"]:
+                fail(f"ingest path: {split}.csv's header is not id,class")
+            rows[split] = [tuple(r) for r in reader]
+    seen = [r[0] for part in rows.values() for r in part]
+    want = {"train": 0.8, "val": 0.1, "test": 0.1}
+    counts = {split: {c: sum(r[1] == c for r in part) for c in CLASSES}
+              for split, part in rows.items()}
+    if (sorted(seen) != sorted(ids) or any(ids[i] != c for part in rows.values()
+                                           for i, c in part)
+            or any(n != round(want[split] * INGEST_PER_CLASS)
+                   for split, per in counts.items() for n in per.values())):
+        fail(f"ingest path: the split CSVs do not partition the tree 80/10/10 by class: "
+             f"{counts}")
+    print(f"[{card}] ingest path, split: {len(rows['train'])}/{len(rows['val'])}/"
+          f"{len(rows['test'])} rows, {counts['train']} / {counts['val']} / "
+          f"{counts['test']} by class, every id once")
+    return rows
+
+
+def _ingest_packed(card: str, root: Path, packed: Path, rows: dict) -> None:
+    """The six caches `pack` wrote: shapes, labels in the CSVs' order (seg:
+    only rows with a mask), masks of 0 and 255 only."""
+    from medseg_tpu_torch.core.config import CLASSES, IMG_SIZE
+    from medseg_tpu_torch.data.packed import load_packed
+
+    for split, part in rows.items():
+        for task in ("cls", "seg"):
+            ds = load_packed(str(packed), f"{split}_{task}", mmap=False)
+            keep = [(i, c) for i, c in part
+                    if task == "cls" or (root / c / "masks" / f"{i}.png").exists()]
+            labels = [CLASSES.index(c) for _, c in keep]
+            n = len(keep)
+            ok = (ds.images.shape == (n, IMG_SIZE, IMG_SIZE, 3) and ds.images.dtype == np.uint8
+                  and ds.labels.tolist() == labels and ds.labels.dtype == np.int32)
+            if task == "seg":
+                ok = ok and ds.masks.shape == (n, IMG_SIZE, IMG_SIZE) and \
+                    set(np.unique(ds.masks).tolist()) <= {0, 255}
+            else:
+                ok = ok and ds.masks is None
+            if not ok:
+                fail(f"ingest path: {split}_{task} holds {ds.images.shape} images, labels "
+                     f"{ds.labels[:8]}..., masks "
+                     f"{None if ds.masks is None else ds.masks.shape}; want {n} rows")
+
+
+def _native_against_cv2(card: str, root: Path, work: Path) -> str:
+    """Which route packs, and the native loader held against cv2 when it
+    built (tests/test_native_loader.py's tolerances): bilinear within 1 of
+    cv2's float resize, the letterbox's pad zero, nearest masks of 0 and
+    255 with under 1% of pixels apart from cv2's, on probe PNGs of
+    INGEST_PROBES; and the train split packed by both routes: images within
+    1, masks of 0 and 255 under 1% apart."""
+    import cv2
+
+    from medseg_tpu_torch.core.config import DataConfig
+    from medseg_tpu_torch.data.packed import pack_split
+    from medseg_tpu_torch.native import loader
+
+    if not loader.available():
+        import io
+
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            loader.build(verbose=True)
+        why = " | ".join(out.getvalue().strip().splitlines()[:2])
+        print(f"[{card}] ingest path: the native loader did not build (g++ at "
+              f"{shutil.which('g++')}: {why or 'no output'}): `pack` took the cv2 route")
+        return "cv2"
+    rng = np.random.default_rng(SEED + 1)
+    paths, arrays = [], []
+    for k, (h, w) in enumerate(INGEST_PROBES):
+        arr = rng.integers(0, 256, (h, w, 3), np.uint8)
+        paths.append(str(work / f"probe{k}.png"))
+        cv2.imwrite(paths[-1], arr[:, :, ::-1])
+        arrays.append(arr)
+    out = loader.decode_resize_batch(paths, 256, letterbox=False, gray=False)
+    worst = max(float(np.abs(out[k].astype(np.float32) - cv2.resize(
+        a.astype(np.float32), (256, 256), interpolation=cv2.INTER_LINEAR)).max())
+        for k, a in enumerate(arrays))
+    boxed = loader.decode_resize_batch(paths, 256, letterbox=True, gray=False)
+    pads = []
+    for k, a in enumerate(arrays):
+        h, w = a.shape[:2]
+        nh, nw = round(h * 256 / max(h, w)), round(w * 256 / max(h, w))
+        top, left = (256 - nh) // 2, (256 - nw) // 2
+        inside = np.zeros((256, 256), bool)
+        inside[top:top + nh, left:left + nw] = True
+        pads.append(int(boxed[k][~inside].max()) if (~inside).any() else 0)
+    mask = (rng.random((299, 299)) > 0.5).astype(np.uint8) * 255
+    cv2.imwrite(str(work / "probe_mask.png"), mask)
+    near = loader.decode_resize_batch([str(work / "probe_mask.png")], 256, letterbox=False,
+                                      gray=True, nearest=True)[0]
+    apart = float((near != cv2.resize(mask, (256, 256),
+                                      interpolation=cv2.INTER_NEAREST)).mean())
+    cfg = DataConfig(root=str(root), splits_dir=str(root / "splits"))
+    split_diff, mask_apart = 0.0, 0.0
+    for task in ("cls", "seg"):
+        a = pack_split(cfg, "train", task, use_native=True)
+        b = pack_split(cfg, "train", task, use_native=False)
+        split_diff = max(split_diff, float(np.abs(a.images.astype(np.int16)
+                                                  - b.images.astype(np.int16)).max()))
+        if task == "seg":
+            mask_apart = float((a.masks != b.masks).mean())
+            if not set(np.unique(a.masks).tolist()) <= {0, 255}:
+                fail("ingest path: the native route's masks hold values other than 0, 255")
+    ok = (worst <= 1.01 and max(pads) == 0 and apart < 0.01
+          and set(np.unique(near).tolist()) <= {0, 255} and split_diff <= 1.0
+          and mask_apart < 0.01)
+    print(f"[{card}] ingest path, native loader ({loader.library_path().name}) vs cv2 "
+          f"{cv2.__version__}: bilinear max |diff| {worst:.2f} (tol 1.01) over "
+          f"{INGEST_PROBES}; letterbox pad max {max(pads)} (tol 0); nearest mask "
+          f"{apart:.4%} apart (tol 1%); the train split packed by both routes: images "
+          f"max |diff| {split_diff:.0f} (tol 1), masks {mask_apart:.4%} apart (tol 1%): "
+          f"{'pass' if ok else 'FAIL'}")
+    if not ok:
+        fail("ingest path: the native loader is not within tolerance of cv2")
+    return "native"
+
+
+@_on_host_clock
+def _pack_rates(card: str, root: Path, route: str) -> None:
+    """A reading: img/s of packing all six caches (images and masks decoded
+    and resized) by each route the machine has, host clock."""
+    from medseg_tpu_torch.core.config import DataConfig
+    from medseg_tpu_torch.data.packed import pack_split
+
+    cfg = DataConfig(root=str(root), splits_dir=str(root / "splits"))
+    rates = []
+    routes = (("native", True), ("cv2", False)) if route == "native" else (("cv2", False),)
+    for name, native in routes:
+        t0 = time.perf_counter()
+        n = sum(len(pack_split(cfg, split, task, use_native=native))
+                for split in ("train", "val", "test") for task in ("cls", "seg"))
+        dt = time.perf_counter() - t0
+        rates.append(f"{name} {n / dt:.1f} img/s ({n} samples in {dt:.3f} s)")
+    print(f"[{card}] ingest path, pack of the six caches at 256px by host clock, "
+          f"{os.cpu_count()} CPUs: " + "; ".join(rates))
+
+
+def _trace_launches(card: str, trace_dir: Path, steps: dict) -> None:
+    """The `--profile` traces: one Chrome trace per model, each naming the
+    warp kernel once per train step of that model's run."""
+    files = sorted(trace_dir.glob("*.pt.trace.json"), key=lambda p: p.stat().st_mtime)
+    counts = []
+    for f in files:
+        events = json.loads(f.read_text())["traceEvents"]
+        counts.append(sum(1 for e in events if e.get("cat") == "kernel"
+                          and "warp_affine_kernel" in e.get("name", "")))
+    want = list(steps.values())
+    size = sum(f.stat().st_size for f in files) / 2**20
+    print(f"[{card}] ingest path, --profile: {len(files)} trace(s), {size:.1f} MiB, "
+          f"warp kernels {counts} (want {want}, one a train step of "
+          f"{', '.join(steps)})")
+    if counts != want:
+        fail(f"ingest path: the --profile traces name the warp kernel {counts} times, "
+             f"not once a step {want}")
+
+
+def _ingest_compare(card: str, packed: Path, weights: Path, work: Path, common: list,
+                    eval_b2: int) -> int:
+    """`eval`, then `eval --compare REF` against copies of its CSVs (delta 0,
+    within tolerance) and against a copy with one metric moved by 1 pp
+    (caught); then `parity --reference` with both (exit 0, exit 1).  Each
+    command launches B2 eval_b2 times; returns their launches."""
+    from medseg_tpu_torch.eval.parity import compare_results_csv
+
+    names = ("classification_test_results.csv", "segmentation_test_results.csv")
+    base = ["--cache-dir", str(packed), "--weights-root", str(weights)] + common
+    _cli(card, ["eval", "--results-dir", str(work / "r0")] + base,
+         {"fused_photometric": eval_b2}, "ingest path")
+    ref, moved = work / "ref", work / "ref_moved"
+    for d in (ref, moved):
+        d.mkdir()
+        for n in names:
+            shutil.copy(work / "r0" / n, d / n)
+    with open(moved / names[0], newline="") as f:
+        table = list(csv.reader(f))
+    table[1][1] = repr(float(table[1][1]) - 1.0)  # the first model's accuracy
+    with open(moved / names[0], "w", newline="") as f:
+        csv.writer(f, lineterminator="\n").writerows(table)
+    for d, same in ((ref, True), (moved, False)):
+        text = _cli(card, ["eval", "--results-dir", str(work / f"r_{d.name}"), "--compare",
+                           str(d)] + base, {"fused_photometric": eval_b2}, "ingest path")
+        heads = [f"=== Parity vs {d / n} ===" for n in names]
+        verdicts = [line for line in text.splitlines() if line.startswith("max |delta|")]
+        want = (["max |delta| = 0.000 pp; within tolerance: True"] * 2 if same else
+                ["max |delta| = 1.000 pp; within tolerance: False",
+                 "max |delta| = 0.000 pp; within tolerance: True"])
+        deltas = [compare_results_csv(str(work / f"r_{d.name}" / n), str(d / n))
+                  ["max_abs_delta"] for n in names]
+        if not all(h in text for h in heads) or verdicts != want:
+            fail(f"ingest path: eval --compare {d.name} read {verdicts}, not {want}")
+        print(f"[{card}] ingest path, eval --compare {d.name}: {verdicts}; exact max "
+              f"|delta| {deltas}")
+        text = _cli(card, ["parity", "--reference", str(d), "--results-dir",
+                           str(work / f"p_{d.name}")] + base, {"fused_photometric": eval_b2},
+                    "ingest path", code=0 if same else 1)
+        verdict = "PARITY PASS" if same else "PARITY FAIL"
+        if text.rstrip().splitlines()[-1] != verdict:
+            fail(f"ingest path: parity --reference {d.name} did not end in {verdict}")
+    return 5 * eval_b2  # 3 `eval` and 2 `parity`
+
+
+@_on_host_clock
+def _ingest_demo(card: str, weights: Path, work: Path) -> None:
+    """`demo --builtin --no-warmup` as a `python -m` subprocess over the
+    trained weights: GET / and /design.css are the port's page and
+    stylesheet, POST /predict with one 299x299 PNG answers a class and a
+    confidence; the process is stopped in every case."""
+    import base64
+    import io
+    import socket
+
+    from PIL import Image
+
+    from medseg_tpu_torch.apps.demo import CSS, builtin_demo_page
+    from medseg_tpu_torch.core.config import CLASSES
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    log = open(work / "demo.log", "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "medseg_tpu_torch.apps.cli", "demo", "--builtin",
+         "--no-warmup", "--port", str(port), "--weights-root", str(weights)],
+        cwd=HERE, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        base = f"http://127.0.0.1:{port}"
+        deadline = time.perf_counter() + 180
+        while True:
+            try:
+                with urllib.request.urlopen(base + "/", timeout=10) as r:
+                    page = r.read()
+                break
+            except OSError:
+                if proc.poll() is not None or time.perf_counter() > deadline:
+                    fail(f"ingest path: the demo did not come up (exit {proc.poll()}):\n"
+                         f"{(work / 'demo.log').read_text()[-3000:]}")
+                time.sleep(0.5)
+        up = time.perf_counter() - t0
+        with urllib.request.urlopen(base + "/design.css", timeout=10) as r:
+            css = r.read()
+        if page != builtin_demo_page().encode() or css != CSS.encode():
+            fail("ingest path: the demo's page or stylesheet is not the port's")
+        buf = io.BytesIO()
+        Image.fromarray(_xray_like(np.random.default_rng(SEED + 2), 299, 299)).save(
+            buf, format="PNG")
+        t1 = time.perf_counter()
+        out = _post(port, json.dumps({"image": base64.b64encode(buf.getvalue()).decode()})
+                    .encode(), timeout=300)
+        first = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        again = _post(port, json.dumps({"image": base64.b64encode(buf.getvalue()).decode()})
+                      .encode(), timeout=300)
+        second = time.perf_counter() - t1
+        if (out["prediction"] not in CLASSES or not 0.0 < out["confidence"] <= 100.0
+                or again["prediction"] != out["prediction"]):
+            fail(f"ingest path: the demo's /predict answered {out}")
+        print(f"[{card}] ingest path, `python -m medseg_tpu_torch.apps.cli demo --builtin "
+              f"--no-warmup` over the trained weights: up in {up:.1f} s, GET / and "
+              f"/design.css are the port's page and CSS ({len(page)} + {len(css)} bytes), "
+              f"POST /predict (299x299 PNG) -> {out['prediction']} "
+              f"{out['confidence']:.2f}% in {first:.3f} s (models loaded), again in "
+              f"{second:.3f} s (host clock)")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=20)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def run_ingest_path(card: str) -> dict:
+    """From the dataset's PNGs to a trained model, its parity report and the
+    demo, through medseg_tpu_torch.apps.cli.main in this process as a user
+    runs it: a PNG tree of 3 classes x INGEST_PER_CLASS 299x299 X-ray-like
+    images (masks at 256x256, none for the last INGEST_UNMASKED of a class),
+    `split`, `pack` (the native C++ loader when it builds, else cv2), `train
+    ResNet18 ResNetUnet --epochs 2 --profile DIR` at full width, `eval`,
+    `eval --compare` and `parity --reference` against copies of its own
+    CSVs and against a copy with one metric moved by 1 pp, and `demo
+    --builtin` as a `python -m` subprocess.  Gates: the CSVs partition the
+    tree 240/30/30 stratified; the caches' shapes and labels; the native
+    route against cv2; exactly one B1 launch a train step and one B2 a
+    validation, eval and parity batch, counted from the sizes; the traces
+    name the warp kernel once a step; the reports read delta 0 and PASS on
+    the copy and catch the moved metric (parity exits 0 and 1); the demo's
+    page and CSS are the port's and /predict answers.  Readings: pack img/s
+    by route, each command's wall time.  Returns the launches of its
+    commands."""
+    from medseg_tpu_torch.core.config import TrainConfig
+    from medseg_tpu_torch.data.loader import split_train_val
+    from medseg_tpu_torch.data.packed import load_packed
+
+    cfg = TrainConfig()
+    (HERE / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        work = Path(tmp)
+        root, packed, weights = work / "dataset", work / "packed", work / "weights"
+        t0 = time.perf_counter()
+        ids = _ingest_tree(root)
+        print(f"[{card}] ingest path: wrote {len(ids)} PNGs at 299x299 and their masks in "
+              f"{time.perf_counter() - t0:.1f} s")
+        _cli(card, ["split", "--root", str(root)], {}, "ingest path")
+        rows = _ingest_splits(card, root, ids)
+        _cli(card, ["pack", "--root", str(root), "--cache-dir", str(packed)], {},
+             "ingest path")
+        _ingest_packed(card, root, packed, rows)
+        route = _native_against_cv2(card, root, work)
+        _pack_rates(card, root, route)
+
+        def batches(n, frac, b):
+            tr, va = split_train_val(n, frac)
+            return -(-len(tr) // b), -(-len(va) // b)
+
+        n_cls = len(load_packed(str(packed), "train_cls").labels)
+        n_seg = len(load_packed(str(packed), "train_seg").labels)
+        cls_steps, cls_val = batches(n_cls, cfg.val_fraction, cfg.cls_batch_size)
+        seg_steps, seg_val = batches(n_seg, cfg.val_fraction, cfg.seg_batch_size)
+        train_b1 = INGEST_EPOCHS * (cls_steps + seg_steps)
+        train_b2 = INGEST_EPOCHS * (cls_val + seg_val)
+        trace = work / "trace"
+        text = _cli(card, ["train", "ResNet18", "ResNetUnet", "--epochs", str(INGEST_EPOCHS),
+                           "--cache-dir", str(packed), "--weights-root", str(weights),
+                           "--profile", str(trace)],
+                    {"warp_affine": train_b1, "fused_photometric": train_b2}, "ingest path")
+        for name in ("ResNet18", "ResNetUnet"):
+            _ft_epochs(text, name, INGEST_EPOCHS)
+        _trace_launches(card, trace, {"ResNet18": INGEST_EPOCHS * cls_steps,
+                                      "ResNetUnet": INGEST_EPOCHS * seg_steps})
+        n_test = {t: len(load_packed(str(packed), f"test_{t}").labels) for t in ("cls", "seg")}
+        eval_b2 = -(-n_test["cls"] // 16) + -(-n_test["seg"] // 8)
+        compare_b2 = _ingest_compare(card, packed, weights, work, ["--root", str(root)],
+                                     eval_b2)
+        _ingest_demo(card, weights, work)
+    return {"warp_affine": train_b1, "fused_photometric": train_b2 + compare_b2}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     import medseg_tpu_torch
-    from medseg_tpu_torch.ops.kernels import build, photometric, stem_kernel, warp_kernel
 
     if Path(medseg_tpu_torch.__file__).resolve().parents[1] != HERE:
         print("chip_smoke: run it from the root of a checkout", file=sys.stderr)
@@ -3668,8 +4360,26 @@ def main() -> int:
     print(f"device: torch={name!r} nvidia-smi={card!r} "
           f"count={torch.cuda.device_count()} torch={torch.__version__} "
           f"cuda={torch.version.cuda}")
-
+    global _WORKER
     t_start = time.perf_counter()
+    _WORKER = _CpuWorker()  # starts its interpreter while the kernels build
+    try:
+        code = _drive(card, name)
+    finally:
+        _WORKER.close()
+        _WORKER = None
+    print(f"[{card}] chip_smoke total: {time.perf_counter() - t_start:.1f} s")
+    print(f"card: {card}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return code
+
+
+def _drive(card: str, name: str) -> int:
+    """Builds and checks the kernels, drives every path and prints the
+    kernels line; fails on any phase's failure."""
+    from medseg_tpu_torch.ops.kernels import build, photometric, stem_kernel, warp_kernel
+
     t0 = time.perf_counter()
     libs = build.build_all()
     print(f"[{card}] kernel build: {time.perf_counter() - t0:.3f} s for "
@@ -3691,18 +4401,20 @@ def main() -> int:
                 "stem_conv_pool": run_stem_path(card)["stem_conv_pool"]}
     print(f"[{card}] kernel checks and the aug+infer, eval and stem paths: "
           f"{time.perf_counter() - t0:.1f} s")
-    paths = {"train": run_train_path, "seg": run_seg_path, "serve": run_serve_path,
-             "clip": run_clip_path, "finetune": run_finetune_path, "zoo": run_zoo_path}
+    paths = {"ingest": run_ingest_path, "train": run_train_path, "seg": run_seg_path,
+             "serve": run_serve_path, "clip": run_clip_path, "finetune": run_finetune_path,
+             "zoo": run_zoo_path}
     returned = {}
     for path, run in paths.items():
         t0 = time.perf_counter()
         returned[path] = run(card)
         print(f"[{card}] {path} path: {time.perf_counter() - t0:.1f} s")
     # B2's count: the eval path's launches and the clip path's servers'; and
-    # both kernels' launches on the finetune path's commands
+    # both kernels' launches on the ingest and finetune paths' commands
     launches["fused_photometric"] += returned["clip"]
-    for kernel, n in returned["finetune"].items():
-        launches[kernel] += n
+    for path in ("ingest", "finetune"):
+        for kernel, n in returned[path].items():
+            launches[kernel] += n
 
     modules = {"warp_affine": warp_kernel, "fused_photometric": photometric,
                "stem_conv_pool": stem_kernel}
@@ -3713,11 +4425,8 @@ def main() -> int:
     for k in kernels:
         if k["launches"] < 1:
             fail(f"kernel {k['name']} was not launched on its path")
-    print(f"[{card}] chip_smoke total: {time.perf_counter() - t_start:.1f} s")
+    _WORKER.drain(card)
     print(json.dumps({"kernels": kernels}))
-    print(f"card: {card}")
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -1,22 +1,30 @@
 """Command-line interface of the port.
 
-    python -m medseg_tpu_torch.apps.cli train [MODELS...] [--epochs 20]
-    python -m medseg_tpu_torch.apps.cli eval  [--batch-size 16]
+    python -m medseg_tpu_torch.apps.cli split    # seed-42 stratified 80/10/10 CSVs
+    python -m medseg_tpu_torch.apps.cli pack     # decode+resize into packed caches
+    python -m medseg_tpu_torch.apps.cli train [MODELS...] [--epochs 20] [--profile DIR]
+    python -m medseg_tpu_torch.apps.cli eval  [--batch-size 16] [--compare DIR]
+    python -m medseg_tpu_torch.apps.cli parity [--reference DIR] [--tolerance 0.5]
     python -m medseg_tpu_torch.apps.cli finetune-clip    --random-init
     python -m medseg_tpu_torch.apps.cli finetune-clipseg --random-init
+    python -m medseg_tpu_torch.apps.cli demo    [--builtin] [--port 7860] [--no-warmup]
     python -m medseg_tpu_torch.apps.cli serve   [--port 8000] [--no-warmup]
     python -m medseg_tpu_torch.apps.cli predict --input DIR [--output DIR]
 
-Counterpart of medseg_tpu/apps/cli.py's `train` (:98-140), `eval`
-(:143-165), `finetune-clip` and `finetune-clipseg` (:235-319), `serve` and
-`predict`, with the same arguments, defaults and printed lines.  Every
-command runs on the card unless `--device cpu` is passed.  Shared paths:
---root (the dataset; --cache-dir defaults to {root}/packed, the JAX CLI's
-default "dataset/packed"), --cache-dir (the packed caches that `medseg
-pack` writes), --weights-root and --results-dir.  `--prompt-ids PATH`
-names the JSON bundle of CLIP's and CLIPSeg's prompt token ids (it sets
-$MEDSEG_PROMPT_IDS, interop/prompts.py); checkpoints that the finetuners
-wrote carry their own prompt features and need none.
+Counterpart of medseg_tpu/apps/cli.py's `split` and `pack` (:40-55),
+`train` (:98-140), `eval` (:143-176), `parity` (:179-231), `finetune-clip`
+and `finetune-clipseg` (:235-319), `demo`, `serve` and `predict`, with the
+same arguments, defaults and printed lines; `parity --reference` defaults
+to reference/results, relative to the working directory.  `split` and
+`pack` are host work and never touch the card; every other command runs on
+the card unless `--device cpu` is passed.  Shared paths: --root (the
+dataset; --cache-dir defaults to {root}/packed, the JAX CLI's default
+"dataset/packed"), --cache-dir (the packed caches that `pack` writes),
+--weights-root and --results-dir.  `train --profile DIR` writes a
+torch.profiler trace of each model's run into DIR (utils/profiling.py).
+`--prompt-ids PATH` names the JSON bundle of CLIP's and CLIPSeg's prompt
+token ids (it sets $MEDSEG_PROMPT_IDS, interop/prompts.py); checkpoints
+that the finetuners wrote carry their own prompt features and need none.
 
 Loaders keep each packed split on the card (BatchLoader's device cache,
 within its budget), as the JAX CLI's single-chip `train` does.  The
@@ -30,10 +38,8 @@ Not registered, so argparse refuses them (ROADMAP):
 - --data-parallel of train, eval and the finetuners (A.14);
 - --scan-chunk (A.16: its CUDA form is a graph of the step, A.7);
 - --auto-restart (A.16: decided not to port; it restarted after relay drops);
-- --profile (jax.profiler; not ported);
-- eval --compare and the `parity` subcommand (eval/parity.py imports pandas);
-- `split`, `pack`, `install-data`, `demo`, `bench`, `export-torch`
-  (A.15; split and pack import pandas and sklearn).
+- `install-data` (a download), `bench` (A.7) and `export-torch` (the port
+  reads and writes the reference's .pt key names directly).
 """
 
 from __future__ import annotations
@@ -41,16 +47,34 @@ from __future__ import annotations
 import argparse
 import glob
 import os
+from pathlib import Path
 
 import numpy as np
 
-from medseg_tpu_torch.core.config import NUM_CLASSES, EvalConfig, TrainConfig
+from medseg_tpu_torch.core.config import NUM_CLASSES, DataConfig, EvalConfig, TrainConfig
 
 DEFAULT_TRAIN_MODELS = ["ResNet50", "ResNet18", "VGG16", "VGG19",
                         "ResNetUnet", "AttentionUNet", "R2Unet", "R2AttUnet"]
 CLIP_NAME = "openai/clip-vit-base-patch32"
 CLIPSEG_NAME = "CIDAS/clipseg-rd64-refined"
 FINETUNE_VAL_FRACTION = 0.1111  # medseg_tpu/apps/cli.py:295
+
+
+def _cmd_split(args):
+    from medseg_tpu_torch.data.splits import generate_splits
+
+    generate_splits(DataConfig(root=args.root, splits_dir=f"{args.root}/splits"))
+
+
+def _cmd_pack(args):
+    from medseg_tpu_torch.data.packed import pack_split, save_packed
+
+    cfg = DataConfig(root=args.root, splits_dir=f"{args.root}/splits")
+    for split in ("train", "val", "test"):
+        for task in ("cls", "seg"):
+            ds = pack_split(cfg, split, task)
+            save_packed(ds, args.cache_dir, f"{split}_{task}")
+            print(f"packed {split}/{task}: {len(ds)} samples")
 
 
 def _loaders(cache_dir: str, task: str, batch_size: int, val_fraction: float, device):
@@ -71,6 +95,7 @@ def _loaders(cache_dir: str, task: str, batch_size: int, val_fraction: float, de
 def _cmd_train(args):
     from medseg_tpu_torch.core.registry import get_model
     from medseg_tpu_torch.train import train_model
+    from medseg_tpu_torch.utils.profiling import trace_context
 
     cfg = TrainConfig(epochs=args.epochs, lr=args.lr, save_root=args.weights_root,
                       compute_dtype=args.dtype)
@@ -83,7 +108,9 @@ def _cmd_train(args):
         print(f"\n--- Training {task} model: {name} ---")
         train, val = _loaders(args.cache_dir, "seg" if seg else "cls", bs,
                               cfg.val_fraction, device=args.device)
-        res = train_model(name, train, val, cfg, resume=args.resume, device=args.device)
+        with trace_context(args.profile, args.device):
+            res = train_model(name, train, val, cfg, resume=args.resume,
+                              device=args.device)
         results[name] = res.best_score
 
     print("\n\n=============== Training Summary ===============")
@@ -117,8 +144,74 @@ def _cmd_eval(args):
         print("[WARNING] Segmentation test cache not found; skipping.")
     results = test_all_models(cls_loader, seg_loader, cfg, device=args.device)
     print_summary(results)
-    save_results_to_csv(results, f"{cfg.results_dir}/classification_test_results.csv",
-                        f"{cfg.results_dir}/segmentation_test_results.csv")
+    cls_csv = f"{cfg.results_dir}/classification_test_results.csv"
+    seg_csv = f"{cfg.results_dir}/segmentation_test_results.csv"
+    save_results_to_csv(results, cls_csv, seg_csv)
+    if args.compare:
+        from medseg_tpu_torch.eval.parity import compare_results_csv, format_parity_report
+
+        for ours, ref in _csv_pairs(cls_csv, seg_csv, args.compare):
+            print(f"\n=== Parity vs {ref} ===")
+            format_parity_report(compare_results_csv(ours, str(ref)))
+
+
+def _csv_pairs(cls_csv: str, seg_csv: str, ref_dir: str):
+    """(produced CSV, reference CSV) for each of the two that both exist."""
+    for ours, ref_name in ((cls_csv, "classification_test_results.csv"),
+                           (seg_csv, "segmentation_test_results.csv")):
+        ref = Path(ref_dir) / ref_name
+        if Path(ours).exists() and ref.exists():
+            yield ours, ref
+
+
+def _cmd_parity(args):
+    """One-command real-data parity replay: split -> pack the test split ->
+    evaluate every model whose weights exist -> compare the produced CSVs
+    against the reference's published results/*.csv.  Exits 1 when any
+    metric deviates beyond tolerance or a reference model is missing, 2
+    when there is nothing to compare."""
+    from medseg_tpu_torch.data.loader import BatchLoader
+    from medseg_tpu_torch.data.packed import load_packed, pack_split, save_packed
+    from medseg_tpu_torch.data.splits import generate_splits
+    from medseg_tpu_torch.eval.csv_io import save_results_to_csv
+    from medseg_tpu_torch.eval.harness import print_summary, test_all_models
+    from medseg_tpu_torch.eval.parity import compare_results_csv, format_parity_report
+
+    data_cfg = DataConfig(root=args.root, splits_dir=f"{args.root}/splits")
+    if not data_cfg.split_csv("test").exists():
+        generate_splits(data_cfg)
+    for task in ("cls", "seg"):
+        if not (Path(args.cache_dir) / f"test_{task}_images.npy").exists():
+            ds = pack_split(data_cfg, "test", task)
+            save_packed(ds, args.cache_dir, f"test_{task}")
+            print(f"packed test/{task}: {len(ds)} samples")
+
+    cfg = EvalConfig(batch_size=args.batch_size, weights_root=args.weights_root,
+                     results_dir=args.results_dir)
+    cls_loader = BatchLoader(load_packed(args.cache_dir, "test_cls"), cfg.batch_size,
+                             shuffle=False, device=args.device)
+    seg_loader = BatchLoader(load_packed(args.cache_dir, "test_seg"),
+                             max(1, cfg.batch_size // 2), shuffle=False, device=args.device)
+    results = test_all_models(cls_loader, seg_loader, cfg, device=args.device)
+    print_summary(results)
+    cls_csv = f"{cfg.results_dir}/classification_test_results.csv"
+    seg_csv = f"{cfg.results_dir}/segmentation_test_results.csv"
+    save_results_to_csv(results, cls_csv, seg_csv)
+
+    ok = True
+    any_compared = False
+    for ours, ref in _csv_pairs(cls_csv, seg_csv, args.reference):
+        any_compared = True
+        print(f"\n=== Parity vs {ref} (tolerance {args.tolerance} pp) ===")
+        report = compare_results_csv(ours, str(ref), tolerance=args.tolerance)
+        format_parity_report(report)
+        ok = ok and report["within_tolerance"]
+    if not any_compared:
+        print("[ERROR] nothing to compare: no produced/reference CSV pairs")
+        raise SystemExit(2)
+    print(f"\nPARITY {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(1)
 
 
 def _offline_error(name: str) -> RuntimeError:
@@ -192,6 +285,18 @@ def _cmd_finetune(args):
     finetune(train, val, model, aux, cfg, device=args.device)
 
 
+def _cmd_demo(args):
+    from medseg_tpu_torch.apps.demo import launch_builtin_demo, launch_demo
+
+    cfg = EvalConfig(weights_root=args.weights_root)
+    if args.builtin:
+        launch_builtin_demo(cfg, host=args.host, port=args.port,
+                            warmup=not args.no_warmup, device=args.device)
+    else:
+        launch_demo(share=args.share, cfg=cfg, host=args.host, port=args.port,
+                    warmup=not args.no_warmup, device=args.device)
+
+
 def _cmd_predict(args):
     from medseg_tpu_torch.infer.batch import batch_predict
 
@@ -235,6 +340,8 @@ def main(argv=None):
                              "ids (sets $MEDSEG_PROMPT_IDS)")
         return sp
 
+    add("split", _cmd_split)
+    add("pack", _cmd_pack)
     sp = add("train", _cmd_train)
     sp.add_argument("models", nargs="*", default=DEFAULT_TRAIN_MODELS)
     sp.add_argument("--epochs", type=int, default=20)
@@ -242,8 +349,18 @@ def main(argv=None):
     sp.add_argument("--batch-size", type=int, default=None)
     sp.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
     sp.add_argument("--resume", action="store_true")
+    sp.add_argument("--profile", default=None,
+                    help="torch.profiler trace directory (TensorBoard-loadable)")
     sp = add("eval", _cmd_eval)
     sp.add_argument("--batch-size", type=int, default=16)
+    sp.add_argument("--compare", default=None,
+                    help="directory of reference results CSVs for parity replay")
+    sp = add("parity", _cmd_parity)
+    sp.add_argument("--batch-size", type=int, default=16)
+    sp.add_argument("--reference", default="reference/results",
+                    help="directory with the reference's published results CSVs")
+    sp.add_argument("--tolerance", type=float, default=0.5,
+                    help="max |delta| in percentage points")
     for ft_name in ("finetune-clip", "finetune-clipseg"):
         sp = add(ft_name, _cmd_finetune)
         sp.add_argument("--epochs", type=int, default=20)
@@ -252,6 +369,13 @@ def main(argv=None):
                         help="finetune a randomly initialized full-size tower "
                              "instead of the HF pretrained one (offline smoke "
                              "and certification; metrics are meaningless)")
+    sp = add("demo", _cmd_demo)
+    sp.add_argument("--share", action="store_true")
+    sp.add_argument("--builtin", action="store_true",
+                    help="force the gradio-free builtin web UI")
+    sp.add_argument("--host", default="127.0.0.1")
+    sp.add_argument("--port", type=int, default=7860)
+    sp.add_argument("--no-warmup", action="store_true")
     sp = add("predict", _cmd_predict)
     sp.add_argument("--input", required=True)
     sp.add_argument("--output", default="predictions")

@@ -34,6 +34,27 @@ DEFAULT_SEG_TEXT_PROMPT: str = "lungs"
 
 
 @dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Dataset locations and split parameters.
+
+    Split determinism contract: seed 42, stratified 80/10/10
+    (reference utils/split_dataset.py:142-149).
+    """
+
+    root: str = "dataset"
+    splits_dir: str = "dataset/splits"
+    classes: Sequence[str] = CLASSES
+    img_size: int = IMG_SIZE
+    train_ratio: float = 0.8
+    val_ratio: float = 0.1
+    test_ratio: float = 0.1
+    seed: int = 42
+
+    def split_csv(self, split: str) -> Path:
+        return Path(self.splits_dir) / f"{split}.csv"
+
+
+@dataclasses.dataclass(frozen=True)
 class AugmentConfig:
     """Training-time augmentation parameters.
 

@@ -1,8 +1,8 @@
 """The port's CLI train half (ROADMAP A.13, A.15): `train`, `eval`,
 `finetune-clip --random-init` and `finetune-clipseg --random-init` through
 cli.main on tiny packed caches with --device cpu, the finetuned checkpoints
-evaluated and served with no prompt ids, the flags of unported parts
-refused by argparse, the offline error without --random-init, and the
+evaluated and served with no prompt ids, the flags and commands of unported
+parts refused by argparse, the offline error without --random-init, and the
 random prompt features and embedding against the JAX CLI's draws.
 
 The CNNs train at full width on 32px caches; CLIP and CLIPSeg are the tiny
@@ -131,17 +131,18 @@ def test_cli_finetune_random_init_then_eval_and_predict(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv", [
     ["train", "--data-parallel"], ["train", "--scan-chunk", "2"],
-    ["train", "--auto-restart", "1"], ["train", "--profile", "trace"],
-    ["eval", "--compare", "ref"], ["eval", "--data-parallel"],
+    ["train", "--auto-restart", "1"], ["eval", "--auto-restart", "1"],
+    ["parity", "--data-parallel"], ["eval", "--data-parallel"],
     ["finetune-clip", "--scan-chunk", "2"], ["finetune-clipseg", "--data-parallel"],
-    ["parity"], ["split"], ["pack"],
+    ["install-data"], ["bench"], ["export-torch", "ResNet18"],
 ], ids=lambda a: "_".join(a))
 def test_cli_refuses_unported_flags(argv, capsys):
     with pytest.raises(SystemExit) as e:
         cli.main(argv)
     assert e.value.code == 2
-    assert "unrecognized arguments" in capsys.readouterr().err or argv[0] in (
-        "parity", "split", "pack")
+    err = capsys.readouterr().err
+    assert "unrecognized arguments" in err or (
+        argv[0] in ("install-data", "bench", "export-torch") and "invalid choice" in err)
 
 
 @pytest.mark.parametrize("cmd,name", [("finetune-clip", "openai/clip-vit-base-patch32"),
