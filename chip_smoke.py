@@ -17,9 +17,9 @@ Run from the root of a checkout.  It
    path's (B2's eval form f32 with CLIP's mean and std at 224^2 and 352^2
    for B=1 and 8) at tolerance 0, timed beside their bounds and
    `x.to(dtype)` of the same bytes;
-4. drives ten paths at full width, each with every launch count set to
+4. drives eleven paths at full width, each with every launch count set to
    0 just before it and read just after (ingest right after the first
-   three; clip and finetune before zoo: late in a run profiler sessions
+   three; clip, finetune and dp before zoo: late in a run profiler sessions
    lose records, and the zoo's readings tolerate it).  The CPU halves of
    the seg and zoo paths' gate 4 (the float32 and float64 CPU runs and the
    comparisons) run in one spawned CPU worker while the card works; it is
@@ -174,6 +174,28 @@ Run from the root of a checkout.  It
      each step's rate by host clock, device split (preprocess, forward
      with loss, backward, clip + AdamW), idle share, device operations,
      GEMM TFLOP/s and peak memory;
+   - dp: data parallelism on the one card.  (a) NCCL world 1 in this
+     process (MEDSEG_* naming one process): one bf16 step each of ResNet18
+     (B=16, stage 2) and ResNetUnet (B=8) launches exactly the all-reduces
+     the design implies (one a training BatchNorm's forward, one its
+     backward when its input needs a gradient, one gradient bucket; the
+     BatchNorms counted by hooks), their device time a step beside the
+     step's (a reading); then through cli.main on the finetune path's
+     caches `train ResNet18 ResNetUnet --data-parallel --epochs 2` (one B1
+     a step, one B2 a validation batch), `eval --data-parallel` against
+     `eval` (CSVs within rel 1e-4) and `finetune-clipseg --data-parallel
+     --random-init --epochs 1`; and ResNet18's world-1 data-parallel
+     float64 step against the plain one within 1e-9.  (b) two ranks on
+     cuda:0 under gloo (NCCL refuses two ranks on one GPU), spawned while
+     (a) runs: ResNet18 at 256px, global B=32, 3 float32 steps (TF32 off)
+     and 3 float64 steps, one float64 ResNetUnet step (frozen encoder
+     training its BatchNorms), a save_best and `eval --data-parallel` of a
+     13-sample split (ragged tails); each rank exactly 7 B1 and 6 B2.
+     Held against one process on the global batch: float64 within 1e-9;
+     float32 within the largest distance from float64 of three one-process
+     runs on permuted rows, plus their spread; the eval CSVs within rel
+     1e-4; only rank 0 wrote.  Readings: the all-reduce share, the path's
+     seconds;
 5. prints one JSON line with every kernel's launches, error and times, and
    as its last line {"ok": true, "device": {...}}.
 
@@ -3958,6 +3980,587 @@ def run_finetune_path(card: str) -> dict:
     return launches
 
 
+DP_BATCH = 32      # dp path (b): ResNet18's global batch at 256px, 16 a rank
+DP_SEG_BATCH = 8   # ... ResNetUnet's (the recipe's), 4 a rank
+DP_STEPS = 3       # ... ResNet18 steps in float32 and in float64 (ResNetUnet: 1)
+DP_EVAL = 13       # ... the sharded eval: 13 test samples, batches of 8 (cls) and 4 (seg)
+DP_PERMS = 3       # ... one-process float32 runs on permuted rows: the yardstick
+DP_LR = 1e-5       # ... the stage-2 optimizer at this lr (PARITY_LR)
+DP_WORLD = 2
+DP_EPOCHS = 2      # (a): `train ResNet18 ResNetUnet --data-parallel --epochs 2`
+DP_READ_STEPS = 4  # (a): steps in the profiler session of the all-reduce reading
+DP_TIMEOUT_S = 600  # (b): the ranks' limit, after which they are killed
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dp_resnet18(dtype):
+    """ResNet18 on the card, init_weights from a card generator seeded SEED
+    (the same weights in every process), dropout 0, every parameter
+    trainable, the stage-2 optimizer at DP_LR; float64 throughout for a
+    float64 dtype."""
+    from medseg_tpu_torch.models.resnet import init_weights, resnet18
+    from medseg_tpu_torch.train import steps as S
+
+    model = resnet18(dtype=dtype, device="cuda", dropout=0.0)
+    init_weights(model, torch.Generator(device="cuda").manual_seed(SEED))
+    model.to(dtype).train()
+    return model, S.build_optimizer(DP_LR, 5e-4, 1.0, list(model.parameters()))
+
+
+def _dp_rows(array: np.ndarray, group) -> torch.Tensor:
+    """This rank's rows of a global host batch on the card (all of them
+    without a group)."""
+    from medseg_tpu_torch.parallel import shard_batch
+
+    if group is None:
+        return torch.from_numpy(np.ascontiguousarray(array)).cuda()
+    return shard_batch(array, group)
+
+
+def _dp_cls_run(group, dtype, perm=None) -> dict:
+    """DP_STEPS steps of ResNet18 at 256px on this rank's rows of a global
+    batch of DP_BATCH (one process: all of it; the same batch each step),
+    each augmented by one B1 launch (float32 out, then `dtype`) with the
+    global batch's draws, inside data_parallel(group).  perm: the one
+    process's rows permuted after the augmentation, each with its draw.
+    Returns the losses, step 1's clipped gradients and the final state, on
+    the CPU."""
+    from medseg_tpu_torch.data.synthetic import synthetic_cls
+    from medseg_tpu_torch.ops.augment import augment_batch
+    from medseg_tpu_torch.parallel import data_parallel
+    from medseg_tpu_torch.train import steps as S
+
+    ds = synthetic_cls(n=DP_BATCH, img_size=SIZE, seed=SEED + 20)
+    images, labels = _dp_rows(ds.images, group), _dp_rows(ds.labels, group)
+    model, opt = _dp_resnet18(dtype)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def prep(g, x, y):
+        x = augment_batch(g, x, out_dtype=torch.float32)[0].to(dtype)
+        return (x, y) if perm is None else (x[perm], y[perm])
+
+    out = {"loss": []}
+    with data_parallel(group):
+        for i in range(DP_STEPS):
+            loss, _ = S.cls_train_step(model, opt, images, labels, gen, 0.1, prep=prep)
+            out["loss"].append(loss.item())
+            if i == 0:
+                out["grads"] = {k: p.grad.cpu() for k, p in model.named_parameters()}
+    out["state"] = {k: v.cpu() for k, v in model.state_dict().items()
+                    if not k.endswith("num_batches_tracked")}
+    return out
+
+
+def _summary(t: torch.Tensor) -> torch.Tensor:
+    """[sum, sum of squares, dot with cos(0, 1, 2, ...)] in float64: what a
+    comparison at 1e-9 needs of a large tensor, in 24 bytes."""
+    v = t.detach().double().reshape(-1)
+    return torch.stack([v.sum(), v.square().sum(),
+                        v @ torch.cos(torch.arange(v.numel(), dtype=torch.float64,
+                                                   device=v.device))]).cpu()
+
+
+def _dp_seg_run(group) -> dict:
+    """One float64 ResNetUnet step at 256px on this rank's rows of a global
+    batch of DP_SEG_BATCH: the encoder frozen, its BatchNorms in training
+    (global statistics under a group), the mask riding B1 as its 4th plane.
+    Returns the loss and each tensor's _summary (95M float64 parameters)."""
+    from medseg_tpu_torch.data.synthetic import synthetic_seg
+    from medseg_tpu_torch.models.resnet import init_weights
+    from medseg_tpu_torch.models.resnet_unet import resnet_unet
+    from medseg_tpu_torch.ops.augment import augment_batch
+    from medseg_tpu_torch.parallel import data_parallel
+    from medseg_tpu_torch.train import steps as S
+    from medseg_tpu_torch.train.freeze import finetune_filter, set_trainable
+
+    ds = synthetic_seg(n=DP_SEG_BATCH, img_size=SIZE, seed=SEED + 21)
+    model = resnet_unet(dtype=torch.float64, device="cuda")
+    init_weights(model, torch.Generator(device="cuda").manual_seed(SEED + 1))
+    model.double().train()
+    opt = S.build_optimizer(DP_LR, 5e-4, 1.0, set_trainable(model, finetune_filter("ResNetUnet")))
+    with data_parallel(group):
+        loss = S.seg_train_step(
+            model, opt, _dp_rows(ds.images, group), _dp_rows(ds.masks, group),
+            torch.Generator(device="cuda").manual_seed(SEED),
+            prep=lambda g, x, m: augment_batch(g, x, m, out_dtype=torch.float64))
+    out = {k: _summary(v) for k, v in model.state_dict().items()
+           if not k.endswith("num_batches_tracked")}
+    out.update({f"grad/{k}": _summary(p.grad) for k, p in model.named_parameters()
+                if p.grad is not None})
+    return {"loss": loss.item(), "summaries": out}
+
+
+def _dp_eval(argv_tail: list, results: Path) -> str:
+    """cli.main(["eval", ...]) in this process, its output captured."""
+    import io
+
+    from medseg_tpu_torch.apps import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["eval"] + argv_tail + ["--results-dir", str(results)])
+    return buf.getvalue()
+
+
+def _dp_eval_args(work: Path) -> list:
+    return ["--cache-dir", str(work / "packed"), "--weights-root", str(work / "weights"),
+            "--batch-size", "8"]
+
+
+def _dp_rank_main(rank: int, port: int, work: str) -> None:
+    """One rank of the dp path's part (b), spawned: joins a gloo group of
+    DP_WORLD ranks on cuda:0 through MEDSEG_*, runs the ResNet18 steps in
+    float32 and float64, the ResNetUnet float64 step, a best .pt through
+    save_best (rank 0 writes) and `eval --data-parallel`; writes its
+    results and its B1/B2 launches to WORK/rank{rank}.pt, or its traceback
+    to WORK/rank{rank}.err."""
+    work = Path(work)
+    try:
+        import torch.distributed as tdist
+
+        from medseg_tpu_torch.parallel import data_parallel_mesh, initialize_from_env
+        from medseg_tpu_torch.train import checkpoint as ckpt
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        os.environ.update(MEDSEG_COORDINATOR=f"127.0.0.1:{port}",
+                          MEDSEG_NUM_PROCESSES=str(DP_WORLD), MEDSEG_PROCESS_ID=str(rank))
+        initialize_from_env(backend="gloo")
+        try:
+            group = data_parallel_mesh()
+            reset_counts()
+            t0 = time.perf_counter()
+            out = {"f32": _dp_cls_run(group, torch.float32),
+                   "f64": _dp_cls_run(group, torch.float64)}
+            out["seg"] = _dp_seg_run(group)
+            model, _ = _dp_resnet18(torch.float32)
+            ckpt.save_best(str(work / f"weights{rank}"), "ResNet18", model, group=group)
+            t1 = time.perf_counter()
+            out["eval_log"] = _dp_eval(["--data-parallel"] + _dp_eval_args(work),
+                                       work / f"results{rank}")
+            out["launches"] = {n: fn.launches for n, fn in kernel_counts().items()}
+            out["seconds"] = (t1 - t0, time.perf_counter() - t1)
+            out["group"] = (group.rank, group.size, str(group.device))
+        finally:
+            tdist.destroy_process_group()
+        torch.save(out, work / f"rank{rank}.pt")
+    except BaseException:
+        (work / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def _dp_distance(a: dict, b: dict, keys) -> float:
+    """The L2 norm of a - b over `keys`, relative to b's."""
+    num = sum(float((a[k].double() - b[k].double()).square().sum()) for k in keys)
+    den = sum(float(b[k].double().square().sum()) for k in keys)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def _dp_f64_gate(card: str, what: str, got: dict, want: dict) -> None:
+    """Loss at every step and every parameter and running statistic within
+    1e-9 of the float64 reference, relative to each tensor's largest value
+    (at least DP_LR: a tensor that starts at 0 may move by AdamW's lr
+    alone)."""
+    loss = max(abs(a - b) / abs(b) for a, b in zip(got["loss"], want["loss"]))
+    worst = max((float((v - want["state"][k]).abs().max())
+                 / max(float(want["state"][k].abs().max()), DP_LR), k)
+                for k, v in got["state"].items())
+    print(f"[{card}] dp path: {what}: losses {got['loss']} vs {want['loss']} (largest "
+          f"relative difference {loss:.3g}); parameters and running statistics after "
+          f"{DP_STEPS} steps within {worst[0]:.3g} of float64's largest ({worst[1]})")
+    if loss > 1e-9 or worst[0] > 1e-9:
+        fail(f"dp path: {what}: float64 parity beyond 1e-9 (loss {loss:.3g}, "
+             f"{worst[1]} {worst[0]:.3g})")
+
+
+def _dp_f32_gate(card: str, rank0: dict, perms: list, ref64: dict) -> None:
+    """The float32 gate on its yardstick: the two ranks' distance from the
+    one-process float64 run within the largest of the permuted one-process
+    float32 runs' distances from it, plus the spread of those runs (their
+    largest distance from one another); for the losses (largest absolute
+    difference over the steps), step 1's clipped gradients and the state
+    after the last step (L2, relative)."""
+    params = list(ref64["state"])
+    grads = list(ref64["grads"])
+
+    def dists(x, y):
+        return {"loss": max(abs(a - b) for a, b in zip(x["loss"], y["loss"])),
+                "grads": _dp_distance(x["grads"], y["grads"], grads),
+                "state": _dp_distance(x["state"], y["state"], params)}
+
+    to64 = [dists(p, ref64) for p in perms]
+    spread = [dists(perms[i], perms[j]) for i in range(len(perms))
+              for j in range(i + 1, len(perms))]
+    got = dists(rank0, ref64)
+    for key in ("loss", "grads", "state"):
+        bound = max(d[key] for d in to64) + max(d[key] for d in spread)
+        print(f"[{card}] dp path, float32 gate: {key}: two ranks {got[key]:.4g} from "
+              f"float64; permuted one-process runs {[round(d[key], 10) for d in to64]} "
+              f"from it, spread {max(d[key] for d in spread):.4g}; bound {bound:.4g}")
+        if got[key] > bound:
+            fail(f"dp path: the two ranks' float32 {key} is {got[key]:.4g} from float64, "
+                 f"beyond the permuted runs' bound {bound:.4g}")
+
+
+def _dp_bn_counts(model):
+    """Hooks counting the training BatchNorms of a step: forward calls, and
+    those whose input needs a gradient (a backward all-reduce each)."""
+    from medseg_tpu_torch.nn.blocks import BatchNorm2d
+
+    counts = {"forward": 0, "backward": 0}
+
+    def hook(module, args):
+        if module.training:
+            counts["forward"] += 1
+            counts["backward"] += int(args[0].requires_grad)
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, BatchNorm2d)]
+    return counts, handles
+
+
+def _dp_allreduce_reading(card: str, group, name: str, batch: int) -> None:
+    """(a): one bf16 train step of `name` at 256px, B=batch, under the NCCL
+    world-1 group: its all-reduce launches against the number the design
+    implies (a training BatchNorm's forward one, its backward one when its
+    input needs a gradient, one gradient bucket), exact.  Readings over
+    DP_READ_STEPS steps: the NCCL kernels' device time and their share of
+    the step's (NCCL launches no kernel for a world of one), the host time
+    inside the all-reduce calls beside the step's host time, and the step's
+    device time without the group (native BatchNorm, no collective)."""
+    from medseg_tpu_torch.core.registry import get_model
+    from medseg_tpu_torch.data.synthetic import synthetic_cls, synthetic_seg
+    from medseg_tpu_torch.models.resnet import init_weights
+    from medseg_tpu_torch.ops.augment import augment_batch
+    from medseg_tpu_torch.parallel import data_parallel
+    from medseg_tpu_torch.parallel.sharding import COLLECTIVE_COUNTS
+    from medseg_tpu_torch.train import steps as S
+    from medseg_tpu_torch.train.freeze import finetune_filter, set_trainable
+
+    seg = name == "ResNetUnet"
+    ds = (synthetic_seg if seg else synthetic_cls)(n=batch, img_size=SIZE, seed=SEED + 22)
+    images = torch.from_numpy(ds.images).cuda()
+    target = torch.from_numpy(ds.masks if seg else ds.labels).cuda()
+    model = get_model(name)["factory"](dtype=torch.bfloat16, device="cuda")
+    init_weights(model, torch.Generator(device="cuda").manual_seed(SEED))
+    opt = S.build_optimizer(DP_LR, 5e-4, 1.0, set_trainable(model.train(), finetune_filter(name)))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    if seg:
+        def step():
+            S.seg_train_step(model, opt, images, target, gen, prep=lambda g, x, m: augment_batch(
+                g, x, m, out_dtype=torch.bfloat16))
+    else:
+        def step():
+            S.cls_train_step(model, opt, images, target, gen, 0.1, prep=lambda g, x, y: (
+                augment_batch(g, x, out_dtype=torch.bfloat16)[0], y))
+    with data_parallel(group):
+        step()  # warm-up
+        counts, handles = _dp_bn_counts(model)
+        torch.cuda.synchronize()
+        before = COLLECTIVE_COUNTS["all_reduce"]
+        step()
+        torch.cuda.synchronize()
+        got = COLLECTIVE_COUNTS["all_reduce"] - before
+        for h in handles:
+            h.remove()
+        want = counts["forward"] + counts["backward"] + 1
+        print(f"[{card}] dp path (a): {name} bf16 B={batch} step under NCCL world 1: "
+              f"{got} all-reduce launches; the design's {want} = {counts['forward']} "
+              f"training BatchNorm forwards + {counts['backward']} backwards + 1 gradient "
+              f"bucket")
+        if got != want:
+            fail(f"dp path: {name}'s step launched {got} all-reduces, not {want}")
+        events = next(_sessions(step, DP_READ_STEPS, 1))
+        spent = [0.0]
+        call = group.all_reduce_
+
+        def timed(t):
+            t0 = time.perf_counter()
+            out = call(t)
+            spent[0] += time.perf_counter() - t0
+            return out
+
+        group.all_reduce_ = timed  # this instance's calls, the BatchNorms' too
+        try:
+            with host_clock():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(DP_READ_STEPS):
+                    step()
+                torch.cuda.synchronize()
+                host = (time.perf_counter() - t0) / DP_READ_STEPS * 1e3
+        finally:
+            del group.all_reduce_
+    plain = next(_sessions(step, DP_READ_STEPS, 1))
+    with host_clock():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DP_READ_STEPS):
+            step()
+        torch.cuda.synchronize()
+        plain_host = (time.perf_counter() - t0) / DP_READ_STEPS * 1e3
+    nccl = [e for e in events if "nccl" in e.key.lower()]
+    total = sum(e.device_time_total for e in events) / DP_READ_STEPS / 1e3
+    ms = sum(e.device_time_total for e in nccl) / DP_READ_STEPS / 1e3
+    n = sum(e.count for e in nccl) / DP_READ_STEPS
+    in_calls = spent[0] / DP_READ_STEPS * 1e3
+    print(f"[{card}] dp path (a): {name} bf16 B={batch}: NCCL kernels {n:g} a step "
+          f"({sorted({e.key[:48] for e in nccl})}), {ms:.4f} ms of {total:.3f} ms of device "
+          f"time a step ({100 * ms / total:.2f}%); host time in the all-reduce calls "
+          f"{in_calls:.3f} ms of a {host:.3f} ms step ({100 * in_calls / host:.1f}%); the "
+          f"same step without the group (native BatchNorm, no collective) "
+          f"{sum(e.device_time_total for e in plain) / DP_READ_STEPS / 1e3:.3f} ms of device "
+          f"time, {plain_host:.3f} ms of host")
+
+
+def _dp_csvs_close(card: str, what: str, got: Path, want: Path) -> None:
+    """Both results CSVs of `got` equal those of `want`: the same rows and
+    models, every number within rel 1e-4."""
+    for fname in ("classification_test_results.csv", "segmentation_test_results.csv"):
+        with open(got / fname, newline="") as f:
+            a = list(csv.reader(f))
+        with open(want / fname, newline="") as f:
+            b = list(csv.reader(f))
+        if len(a) != len(b) or any(len(x) != len(y) or x[0] != y[0] for x, y in zip(a, b)):
+            fail(f"dp path: {what}: {fname} differs in shape or models:\n{a}\n{b}")
+        worst = 0.0
+        for x, y in zip(a[1:], b[1:]):
+            for u, v in zip(x[1:], y[1:]):
+                worst = max(worst, abs(float(u) - float(v)) / max(abs(float(v)), 1e-12))
+        if worst > 1e-4:
+            fail(f"dp path: {what}: {fname} differs by rel {worst:.3g}")
+        print(f"[{card}] dp path: {what}: {fname} ({len(a) - 1} models) within rel "
+              f"{worst:.3g} of one process's")
+
+
+def run_dp_path(card: str) -> dict:
+    """Data parallelism on the one card.  (a) NCCL world 1 in this process
+    (MEDSEG_* with one process): the all-reduce launches of a ResNet18 and
+    a ResNetUnet bf16 step against the design's count, and the all-reduce
+    share of each step (a reading); then through cli.main on the finetune
+    path's synthetic caches `train ResNet18 ResNetUnet --data-parallel
+    --epochs 2` (one B1 a step, one B2 a validation batch), `eval
+    --data-parallel` against `eval` (the CSVs within rel 1e-4) and
+    `finetune-clipseg --data-parallel --random-init --epochs 1`.  (b) two
+    ranks on cuda:0 under gloo, spawned while (a) runs: ResNet18 at 256px,
+    global B=32, 3 float32 steps (TF32 off) and 3 float64 steps,
+    ResNetUnet's float64 step, a save_best and `eval --data-parallel` of 13
+    samples (ragged tails); each rank exactly 7 B1 and 6 B2.  Gates: float64
+    within 1e-9 of one process on the global batch (the two ranks, and in
+    (a) the world-1 step against the plain one); float32 on the permuted
+    runs' yardstick (_dp_f32_gate); the sharded eval's CSVs within rel 1e-4
+    of one process's; only rank 0 wrote.  Returns the launches of (a)'s
+    commands and (b)'s ranks."""
+    import multiprocessing
+
+    import torch.distributed as tdist
+
+    from medseg_tpu_torch.apps import cli
+    from medseg_tpu_torch.core.config import TrainConfig
+    from medseg_tpu_torch.data.loader import split_train_val
+    from medseg_tpu_torch.data.packed import save_packed
+    from medseg_tpu_torch.data.synthetic import synthetic_cls, synthetic_seg
+    from medseg_tpu_torch.models.resnet import init_weights, resnet18
+    from medseg_tpu_torch.models.resnet_unet import resnet_unet
+    from medseg_tpu_torch.parallel import data_parallel_mesh, initialize_from_env
+
+    t_start = time.perf_counter()
+    launches = {"warp_affine": 0, "fused_photometric": 0}
+    keys = ("MEDSEG_COORDINATOR", "MEDSEG_NUM_PROCESSES", "MEDSEG_PROCESS_ID")
+    saved_env = {k: os.environ.pop(k, None) for k in keys}
+    prompt_ids = os.environ.pop("MEDSEG_PROMPT_IDS", None)
+    ranks = []
+    (HERE / "build").mkdir(exist_ok=True)
+    try:
+        with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+            work = Path(tmp)
+            packed = work / "packed"
+            # the finetune path's caches, and (b)'s 13-sample test split
+            save_packed(synthetic_cls(n=FT_TRAIN_CLS, img_size=SIZE, seed=SEED), str(packed),
+                        "train_cls")
+            save_packed(synthetic_seg(n=FT_TRAIN_SEG, img_size=SIZE, seed=SEED + 1),
+                        str(packed), "train_seg")
+            save_packed(synthetic_cls(n=DP_EVAL, img_size=SIZE, seed=SEED + 2), str(packed),
+                        "test_cls")
+            save_packed(synthetic_seg(n=DP_EVAL, img_size=SIZE, seed=SEED + 3), str(packed),
+                        "test_seg")
+            weights = work / "weights"
+            for name, factory, sub in (("ResNet18_best_acc", resnet18, "classification_models"),
+                                       ("ResNetUnet_best_loss", resnet_unet,
+                                        "segmentation_models")):
+                model = factory(device="cuda")
+                init_weights(model, torch.Generator(device="cuda").manual_seed(SEED + 3))
+                (weights / sub).mkdir(parents=True, exist_ok=True)
+                torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+                           weights / sub / f"{name}.pt")
+            del model
+
+            # (a) NCCL world 1 in this process, as a one-process job joins
+            os.environ.update(MEDSEG_COORDINATOR=f"127.0.0.1:{_free_port()}",
+                              MEDSEG_NUM_PROCESSES="1", MEDSEG_PROCESS_ID="0")
+            if not initialize_from_env():
+                fail("dp path: initialize_from_env did not join under MEDSEG_*")
+            nccl = data_parallel_mesh()
+            print(f"[{card}] dp path (a): {nccl} on the {tdist.get_backend()} backend")
+            t0 = time.perf_counter()
+            _dp_allreduce_reading(card, nccl, "ResNet18", TrainConfig().cls_batch_size)
+            _dp_allreduce_reading(card, nccl, "ResNetUnet", TrainConfig().seg_batch_size)
+            t1 = time.perf_counter()
+
+            # (b) the two ranks start while the card works on (a)
+            port = _free_port()
+            ctx = multiprocessing.get_context("spawn")
+            ranks = [ctx.Process(target=_dp_rank_main, args=(r, port, str(work)), daemon=True)
+                     for r in range(DP_WORLD)]
+            for p in ranks:
+                p.start()
+
+            common = ["--cache-dir", str(packed), "--weights-root", str(work / "trained")]
+            tcfg = TrainConfig()
+            n_cls = len(split_train_val(FT_TRAIN_CLS, tcfg.val_fraction)[0])
+            n_seg = len(split_train_val(FT_TRAIN_SEG, tcfg.val_fraction)[0])
+            b1 = DP_EPOCHS * (n_cls // tcfg.cls_batch_size + n_seg // tcfg.seg_batch_size)
+            b2 = DP_EPOCHS * (-(-(FT_TRAIN_CLS - n_cls) // tcfg.cls_batch_size)
+                              + -(-(FT_TRAIN_SEG - n_seg) // tcfg.seg_batch_size))
+            text = _cli(card, ["train", "ResNet18", "ResNetUnet", "--data-parallel", "--epochs",
+                               str(DP_EPOCHS)] + common,
+                        {"warp_affine": b1, "fused_photometric": b2}, path="dp path")
+            for name in ("ResNet18", "ResNetUnet"):
+                rows = _epoch_lines(text.splitlines(), f"dp path, {name}", FT_EPOCH_LINES[name])
+                if [r[0] for r in rows] != list(range(1, DP_EPOCHS + 1)):
+                    fail(f"dp path: {name} logged epochs {[r[0] for r in rows]}")
+            for line in ("[INFO] multi-host: process 0/1", "[INFO] data-parallel over 1 devices"):
+                if line not in text:
+                    fail(f"dp path: `train --data-parallel` did not print {line!r}")
+            for f in ("ResNet18_resume.pt", "ResNetUnet_resume.pt"):
+                if not list((work / "trained").rglob(f)):
+                    fail(f"dp path: `train --data-parallel` wrote no {f}")
+            launches["warp_affine"] += b1
+            launches["fused_photometric"] += b2
+            b2_eval = -(-DP_EVAL // 8) + -(-DP_EVAL // 4)
+            eval_args = _dp_eval_args(work)
+            _cli(card, ["eval", "--data-parallel"] + eval_args
+                 + ["--results-dir", str(work / "results_dp")],
+                 {"fused_photometric": b2_eval}, path="dp path")
+            _cli(card, ["eval"] + eval_args + ["--results-dir", str(work / "results_one")],
+                 {"fused_photometric": b2_eval}, path="dp path")
+            launches["fused_photometric"] += 2 * b2_eval
+            _dp_csvs_close(card, "(a) `eval --data-parallel` under NCCL world 1",
+                           work / "results_dp", work / "results_one")
+            text = _cli(card, ["finetune-clipseg", "--data-parallel", "--random-init",
+                               "--epochs", "1"] + common, {}, path="dp path")
+            _ft_epochs(text, "CLIPSeg", 1)
+            t2 = time.perf_counter()
+
+            # one process on the global batch, while the ranks run
+            ref64 = _dp_cls_run(None, torch.float64)
+            _dp_f64_gate(card, "(a) ResNet18 float64, the world-1 data-parallel step "
+                         "(NCCL) against the plain one", _dp_cls_run(nccl, torch.float64),
+                         ref64)
+            perms = [_dp_cls_run(None, torch.float32, perm=torch.from_numpy(
+                np.random.default_rng(SEED + 30 + i).permutation(DP_BATCH)).cuda())
+                for i in range(DP_PERMS)]
+            seg64 = _dp_seg_run(None)
+            t3 = time.perf_counter()
+            # until both are done, one fails (its peer would wait in a
+            # collective) or the limit passes
+            while (any(p.is_alive() for p in ranks)
+                   and all(p.exitcode in (None, 0) for p in ranks)
+                   and time.perf_counter() - t1 < DP_TIMEOUT_S):
+                time.sleep(0.2)
+            for r, p in enumerate(ranks):
+                err = work / f"rank{r}.err"
+                if p.exitcode != 0 or err.exists():
+                    fail(f"dp path (b): rank {r} exited {p.exitcode}:\n"
+                         f"{err.read_text() if err.exists() else '(no traceback)'}")
+            t4 = time.perf_counter()
+            got = [torch.load(work / f"rank{r}.pt", weights_only=False)
+                   for r in range(DP_WORLD)]
+            _dp_check_ranks(card, got, work, ref64, perms, seg64)
+            for n in launches:
+                launches[n] += sum(g["launches"][n] for g in got)
+            print(f"[{card}] dp path: (a)'s readings {t1 - t0:.1f} s, its commands "
+                  f"{t2 - t1:.1f} s; one-process references {t3 - t2:.1f} s; waited "
+                  f"{t4 - t3:.1f} s for the ranks (steps {[round(g['seconds'][0], 1) for g in got]}"
+                  f" s, eval {[round(g['seconds'][1], 1) for g in got]} s); "
+                  f"{time.perf_counter() - t_start:.1f} s in all")
+    finally:
+        for p in ranks:
+            if p.pid is not None:  # started
+                p.kill()
+                p.join(10)
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+        for k, v in saved_env.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+        if prompt_ids is not None:
+            os.environ["MEDSEG_PROMPT_IDS"] = prompt_ids
+    return launches
+
+
+def _dp_check_ranks(card: str, got: list, work: Path, ref64: dict, perms: list,
+                    seg64: dict) -> None:
+    """(b)'s gates on the ranks' results (see run_dp_path)."""
+    b1 = 2 * DP_STEPS + 1
+    b2 = -(-DP_EVAL // 8) + -(-DP_EVAL // 4)
+    for r, g in enumerate(got):
+        if g["group"] != (r, DP_WORLD, "cuda:0"):
+            fail(f"dp path (b): rank {r} was {g['group']}")
+        want = {"warp_affine": b1, "fused_photometric": b2, "stem_conv_pool": 0}
+        if g["launches"] != want:
+            fail(f"dp path (b): rank {r} launched {g['launches']}, expected {want}")
+    print(f"[{card}] dp path (b): each of {DP_WORLD} gloo ranks on cuda:0 launched "
+          f"{got[0]['launches']}: one B1 a train step ({2 * DP_STEPS} ResNet18 + 1 "
+          f"ResNetUnet), one B2 an eval batch")
+    r0, r1 = got
+    for key in ("f32", "f64"):
+        same = r0[key]["loss"] == r1[key]["loss"] and all(
+            torch.equal(v, r1[key]["state"][k]) for k, v in r0[key]["state"].items())
+        if not same:
+            fail(f"dp path (b): the two ranks' {key} ResNet18 runs differ")
+    _dp_f64_gate(card, f"(b) ResNet18 float64, {DP_WORLD} gloo ranks of B={DP_BATCH // 2} "
+                 f"against one process of B={DP_BATCH}", r0["f64"], ref64)
+    _dp_f32_gate(card, r0["f32"], perms, ref64)
+    loss = abs(r0["seg"]["loss"] - seg64["loss"]) / abs(seg64["loss"])
+    s0, s1, one = r0["seg"]["summaries"], r1["seg"]["summaries"], seg64["summaries"]
+    # gradients relative to the largest gradient's summary; the rest to their
+    # own, but for the parameters whose gradient is noise within 1e-9 of it
+    # (a conv bias feeding a BatchNorm has an exactly zero one), held apart:
+    # they start at 0 and move by AdamW's response to rounding noise alone
+    gmax = max(float(v.abs().max()) for k, v in one.items() if k.startswith("grad/"))
+    noise = [k for k in one if k.startswith("grad/")
+             and float(one[k].abs().max()) <= 1e-9 * gmax]
+    apart = {k[5:] for k in noise}
+    worst = max((float((s0[k] - v).abs().max())
+                 / (gmax if k.startswith("grad/") else max(float(v.abs().max()), 1e-300)), k)
+                for k, v in one.items() if k not in apart)
+    print(f"[{card}] dp path (b): ResNetUnet float64 step, {DP_WORLD} ranks of "
+          f"B={DP_SEG_BATCH // 2} against one process of B={DP_SEG_BATCH}: loss "
+          f"{r0['seg']['loss']} vs {seg64['loss']} (rel {loss:.3g}); every tensor's summary "
+          f"within {worst[0]:.3g} ({worst[1]}); {len([k for k in one if k.startswith('grad/')])} "
+          f"gradients, none in the encoder; held apart, their gradients noise: "
+          f"{sorted(apart)}")
+    if (loss > 1e-9 or worst[0] > 1e-9 or s0.keys() != s1.keys()
+            or any(not torch.equal(v, s1[k]) for k, v in s0.items())
+            or any(k.startswith("grad/encoder") for k in one)):
+        fail("dp path (b): ResNetUnet's float64 step is not one process's within 1e-9, "
+             "or the ranks differ")
+    if not (work / "weights0" / "ResNet18_best_acc.pt").exists() \
+            or (work / "weights1").exists() or (work / "results1").exists():
+        fail("dp path (b): save_best and the eval CSVs must be rank 0's alone")
+    _dp_csvs_close(card, f"(b) `eval --data-parallel` over {DP_WORLD} gloo ranks, "
+                   f"{DP_EVAL} samples", work / "results0", work / "results_one")
+
+
 INGEST_PER_CLASS = 100  # ingest path: 299x299 PNGs a class (the Kaggle set's size)
 INGEST_UNMASKED = 5     # ... the last of each class have no mask
 INGEST_MASK = 256       # ... masks at 256x256, as the Kaggle set's lung masks
@@ -4403,16 +5006,17 @@ def _drive(card: str, name: str) -> int:
           f"{time.perf_counter() - t0:.1f} s")
     paths = {"ingest": run_ingest_path, "train": run_train_path, "seg": run_seg_path,
              "serve": run_serve_path, "clip": run_clip_path, "finetune": run_finetune_path,
-             "zoo": run_zoo_path}
+             "dp": run_dp_path, "zoo": run_zoo_path}
     returned = {}
     for path, run in paths.items():
         t0 = time.perf_counter()
         returned[path] = run(card)
         print(f"[{card}] {path} path: {time.perf_counter() - t0:.1f} s")
     # B2's count: the eval path's launches and the clip path's servers'; and
-    # both kernels' launches on the ingest and finetune paths' commands
+    # both kernels' launches on the ingest, finetune and dp paths' commands
+    # (the dp path's two ranks' too)
     launches["fused_photometric"] += returned["clip"]
-    for path in ("ingest", "finetune"):
+    for path in ("ingest", "finetune", "dp"):
         for kernel, n in returned[path].items():
             launches[kernel] += n
 

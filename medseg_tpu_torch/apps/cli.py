@@ -34,8 +34,21 @@ download and is not ported.  `--random-init` builds the full-size model
 with init_weights from a seeded torch.Generator, and the JAX package's
 prompt features / conditional embedding drawn from default_rng(0).
 
+Data parallelism: `main` joins the process group that MEDSEG_COORDINATOR,
+MEDSEG_NUM_PROCESSES and MEDSEG_PROCESS_ID describe (parallel/dist.py)
+before anything touches the card, and `--data-parallel` (train, eval,
+finetune-clip, finetune-clipseg) splits every global batch over it, one
+process per GPU, each on cuda:{MEDSEG_PROCESS_ID % device count}; rank 0
+writes the checkpoints and CSVs.  Without MEDSEG_* it runs a world-1 group
+on this process's device: the JAX CLI's mesh spans every local device
+from one process, which PyTorch does only through the deprecated
+nn.DataParallel, so several GPUs take one process each, e.g.
+
+    export MEDSEG_COORDINATOR=127.0.0.1:29500 MEDSEG_NUM_PROCESSES=2
+    MEDSEG_PROCESS_ID=0 python -m medseg_tpu_torch.apps.cli train --data-parallel &
+    MEDSEG_PROCESS_ID=1 python -m medseg_tpu_torch.apps.cli train --data-parallel
+
 Not registered, so argparse refuses them (ROADMAP):
-- --data-parallel of train, eval and the finetuners (A.14);
 - --scan-chunk (A.16: its CUDA form is a graph of the step, A.7);
 - --auto-restart (A.16: decided not to port; it restarted after relay drops);
 - `install-data` (a download), `bench` (A.7) and `export-torch` (the port
@@ -58,6 +71,9 @@ DEFAULT_TRAIN_MODELS = ["ResNet50", "ResNet18", "VGG16", "VGG19",
 CLIP_NAME = "openai/clip-vit-base-patch32"
 CLIPSEG_NAME = "CIDAS/clipseg-rd64-refined"
 FINETUNE_VAL_FRACTION = 0.1111  # medseg_tpu/apps/cli.py:295
+DP_HELP = ("{}: here one process per GPU, joined by MEDSEG_COORDINATOR / "
+           "MEDSEG_NUM_PROCESSES / MEDSEG_PROCESS_ID; without them a world-1 "
+           "group on this process's device")
 
 
 def _cmd_split(args):
@@ -92,6 +108,22 @@ def _loaders(cache_dir: str, task: str, batch_size: int, val_fraction: float, de
     return train, val
 
 
+def _mesh_if(args):
+    """`--data-parallel` -> the data-parallel group (every process that
+    joined, or this one alone), else None (medseg_tpu/apps/cli.py:78-95)."""
+    if not getattr(args, "data_parallel", False):
+        return None
+    import torch.distributed as dist
+
+    from medseg_tpu_torch.parallel import data_parallel_mesh
+
+    if dist.is_initialized():
+        print(f"[INFO] multi-host: process {dist.get_rank()}/{dist.get_world_size()}")
+    mesh = data_parallel_mesh(args.device)
+    print(f"[INFO] data-parallel over {mesh.size} devices")
+    return mesh
+
+
 def _cmd_train(args):
     from medseg_tpu_torch.core.registry import get_model
     from medseg_tpu_torch.train import train_model
@@ -99,6 +131,7 @@ def _cmd_train(args):
 
     cfg = TrainConfig(epochs=args.epochs, lr=args.lr, save_root=args.weights_root,
                       compute_dtype=args.dtype)
+    mesh = _mesh_if(args)
     results, tasks = {}, {}
     for name in args.models:
         task = get_model(name)["task"]
@@ -110,7 +143,7 @@ def _cmd_train(args):
                               cfg.val_fraction, device=args.device)
         with trace_context(args.profile, args.device):
             res = train_model(name, train, val, cfg, resume=args.resume,
-                              device=args.device)
+                              device=args.device, mesh=mesh)
         results[name] = res.best_score
 
     print("\n\n=============== Training Summary ===============")
@@ -142,11 +175,15 @@ def _cmd_eval(args):
                                  cfg.batch_size // 2, shuffle=False, device=args.device)
     except FileNotFoundError:
         print("[WARNING] Segmentation test cache not found; skipping.")
-    results = test_all_models(cls_loader, seg_loader, cfg, device=args.device)
+    mesh = _mesh_if(args)
+    results = test_all_models(cls_loader, seg_loader, cfg, device=args.device, mesh=mesh)
     print_summary(results)
     cls_csv = f"{cfg.results_dir}/classification_test_results.csv"
     seg_csv = f"{cfg.results_dir}/segmentation_test_results.csv"
-    save_results_to_csv(results, cls_csv, seg_csv)
+    if mesh is None or mesh.rank == 0:  # rank 0 writes the CSVs
+        save_results_to_csv(results, cls_csv, seg_csv)
+    if mesh is not None:
+        mesh.barrier()  # the CSVs are whole before any rank compares them
     if args.compare:
         from medseg_tpu_torch.eval.parity import compare_results_csv, format_parity_report
 
@@ -282,7 +319,7 @@ def _cmd_finetune(args):
     model, aux = random_init(args.device)
     train, val = _loaders(args.cache_dir, task, cfg.batch_size, FINETUNE_VAL_FRACTION,
                           device=args.device)
-    finetune(train, val, model, aux, cfg, device=args.device)
+    finetune(train, val, model, aux, cfg, device=args.device, mesh=_mesh_if(args))
 
 
 def _cmd_demo(args):
@@ -349,12 +386,18 @@ def main(argv=None):
     sp.add_argument("--batch-size", type=int, default=None)
     sp.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
     sp.add_argument("--resume", action="store_true")
+    sp.add_argument("--data-parallel", action="store_true",
+                    help=DP_HELP.format("shard batches over all devices (Mesh('data'))"))
     sp.add_argument("--profile", default=None,
                     help="torch.profiler trace directory (TensorBoard-loadable)")
     sp = add("eval", _cmd_eval)
     sp.add_argument("--batch-size", type=int, default=16)
     sp.add_argument("--compare", default=None,
                     help="directory of reference results CSVs for parity replay")
+    sp.add_argument("--data-parallel", action="store_true",
+                    help=DP_HELP.format("shard eval batches over all devices "
+                                        "(Mesh('data'); ragged tails pad+trim, "
+                                        "metrics unchanged)"))
     sp = add("parity", _cmd_parity)
     sp.add_argument("--batch-size", type=int, default=16)
     sp.add_argument("--reference", default="reference/results",
@@ -363,6 +406,8 @@ def main(argv=None):
                     help="max |delta| in percentage points")
     for ft_name in ("finetune-clip", "finetune-clipseg"):
         sp = add(ft_name, _cmd_finetune)
+        sp.add_argument("--data-parallel", action="store_true",
+                        help=DP_HELP.format("shard batches over all devices (Mesh('data'))"))
         sp.add_argument("--epochs", type=int, default=20)
         sp.add_argument("--batch-size", type=int, default=None)
         sp.add_argument("--random-init", action="store_true",
@@ -390,6 +435,11 @@ def main(argv=None):
                          "startup")
 
     args = p.parse_args(argv)
+    # a multi-process job joins its group before anything touches the card;
+    # a no-op without MEDSEG_COORDINATOR (parallel/dist.py)
+    from medseg_tpu_torch.parallel.dist import initialize_from_env
+
+    initialize_from_env(device=args.device)
     if args.cache_dir is None:
         args.cache_dir = f"{args.root}/packed"
     if args.prompt_ids:

@@ -26,15 +26,21 @@ Differences from the JAX package:
   from the file's aux tensors when the port's finetuners wrote it, else
   from the checkpoint's own text tower and the prompt ids
   (interop/prompts.py), computed on the eval device;
-- the mesh branch raises NotImplementedError naming ROADMAP A.14;
+- under a mesh (a parallel.DataParallelGroup, one process per card) each
+  rank runs its rows of every batch, padded to the group's size by a
+  shallow copy of the loader; the per-sample outputs are gathered with one
+  all_gather at the end of the split and trimmed to the real rows, so
+  every rank computes the metrics of the whole split
+  (medseg_tpu/eval/harness.py:220-231 shards one array instead);
 - no retry: `_evaluate_with_retry` guarded against a relay the card does not
   use, so test_all_models calls evaluate_model directly.
 """
 
 from __future__ import annotations
 
+import copy
 from pathlib import Path
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -100,23 +106,38 @@ def _clip_grid(name: str) -> Optional[int]:
     return {"clip": C.CLIP_IMG_SIZE, "clipseg": C.CLIPSEG_IMG_SIZE}.get(name.lower())
 
 
+def _split_rows(parts: List[torch.Tensor], loader: BatchLoader) -> torch.Tensor:
+    """The split's per-sample rows in order with the pad rows trimmed;
+    parts[i] holds this rank's rows of batch i.  Under a group every
+    rank's rows are gathered (one all_gather) and interleaved batch by
+    batch."""
+    group = getattr(loader, "group", None)
+    if group is None:
+        return torch.cat([p[:n] for p, n in zip(parts, loader.real_counts())])
+    ranks = group.all_gather(torch.cat(parts))
+    out, start = [], 0
+    for p, n in zip(parts, loader.global_real_counts()):
+        b = p.shape[0]
+        out.append(torch.cat([r[start:start + b] for r in ranks])[:n])
+        start += b
+    return torch.cat(out)
+
+
 def _eval_classification(model, loader: BatchLoader, device: torch.device,
                          extra: Dict[str, torch.Tensor], clip_size: Optional[int]):
-    preds, labels = [], []
+    rows = []
     with torch.inference_mode():
-        for (images, targets), n_real in zip(loader, loader.real_counts()):
+        for images, targets in loader:
             images = images.to(device)
             if clip_size is None:
                 x, _ = preprocess_eval_batch(images)
             else:  # bicubic resize + CLIP normalize (tester.py:341-371)
                 x = clip_preprocess(images, clip_size)
             p = model(x, **extra).argmax(-1)
-            preds.append(p[:n_real])  # trim pad_to_multiple padding
-            labels.append(targets[:n_real])
+            rows.append(torch.stack([p, targets.to(device=p.device, dtype=p.dtype)], 1))
     # one fetch for the whole split: a per-batch fetch would wait on the card
-    return M.classification_metrics(torch.cat(preds).cpu().numpy(),
-                                    torch.cat(labels).cpu().numpy(),
-                                    num_classes=len(CLASSES))
+    preds, labels = _split_rows(rows, loader).cpu().numpy().T
+    return M.classification_metrics(preds, labels, num_classes=len(CLASSES))
 
 
 def _log_classification(name: str, res: Dict, log: Callable[[str], None]):
@@ -141,9 +162,9 @@ def _log_classification(name: str, res: Dict, log: Callable[[str], None]):
 def _eval_segmentation(model, loader: BatchLoader, device: torch.device,
                        threshold: float, extra: Dict[str, torch.Tensor],
                        clip_size: Optional[int]):
-    acc: Dict[str, list] = {}
+    names, rows = None, []
     with torch.inference_mode():
-        for (images, masks), n_real in zip(loader, loader.real_counts()):
+        for images, masks in loader:
             images, masks = images.to(device), masks.to(device)
             if clip_size is None:
                 x, m = preprocess_eval_batch(images, masks)
@@ -156,11 +177,12 @@ def _eval_segmentation(model, loader: BatchLoader, device: torch.device,
                 logits = model(clip_preprocess(images, clip_size), **extra)
                 probs = torch.sigmoid(logits.to(torch.float32))[..., None]
                 probs = resize_jax(probs, m.shape[1], m.shape[2], "bilinear")
-            for k, v in M.segmentation_metrics_batched(probs, m, threshold).items():
-                acc.setdefault(k, []).append(v[:n_real])  # trim padding
+            metrics = M.segmentation_metrics_batched(probs, m, threshold)
+            names = list(metrics)
+            rows.append(torch.stack(list(metrics.values()), 1))
     # one fetch for the whole split (see _eval_classification)
-    per_sample = torch.stack([torch.cat(v) for v in acc.values()]).cpu().numpy()
-    return M.average_segmentation_metrics(dict(zip(acc, per_sample)))
+    per_sample = _split_rows(rows, loader).cpu().numpy().T
+    return M.average_segmentation_metrics(dict(zip(names, per_sample)))
 
 
 def _log_segmentation(name: str, res: Dict, log: Callable[[str], None]):
@@ -187,8 +209,12 @@ def evaluate_model(name: str, loader: BatchLoader,
     CLIPSeg "cond" there.
 
     The model is built in the factory's default dtype (float32) on `device`
-    (the card unless device="cpu"), and each batch is moved there."""
-    device = resolve_device(device)
+    (the card unless device="cpu"), and each batch is moved there.
+    mesh: a parallel.DataParallelGroup to split each batch over (device
+    defaults to its rank's); every rank returns the split's metrics, and
+    the caller's loader comes back untouched."""
+    device = resolve_device(mesh.device if device is None and mesh is not None
+                            else device)
     seg = name.lower() in _SEG_NAMES
     if state_dict is None:
         bundle = load_model_bundle(name, cfg.weights_root, seg, device)
@@ -200,8 +226,10 @@ def evaluate_model(name: str, loader: BatchLoader,
         # caller-supplied extras override the checkpoint's own
         extra_inputs = {**auto_extra, **(extra_inputs or {})}
     if mesh is not None:
-        raise NotImplementedError("sharded eval waits for the data-parallel "
-                                  "port (ROADMAP A.14)")
+        # a shallow copy, so the caller's loader is not left split or padded
+        loader = copy.copy(loader)
+        loader.group = mesh
+        loader.pad_to_multiple = mesh.size
     model = get_model(name)["factory"](device=device)
     model.load_state_dict(state_dict, strict=True)
     model.eval()
@@ -231,7 +259,8 @@ def test_all_models(cls_loader: Optional[BatchLoader],
     {model: metrics}.  extra_inputs: {model name: its extra inputs}, each
     overriding what its checkpoint gives.  Without a card it raises before
     the first model unless device="cpu"."""
-    device = resolve_device(device)
+    device = resolve_device(mesh.device if device is None and mesh is not None
+                            else device)
     results: Dict[str, Dict] = {}
     extra_inputs = extra_inputs or {}
 

@@ -173,7 +173,9 @@ class ResNetClassifier(ResNetEncoder):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """generator: what the head's dropout draws from in training mode."""
         feats = super().forward(x, skip_stem)
-        return self.fc(global_avg_pool(feats).to(torch.float32), generator)
+        pooled = global_avg_pool(feats)  # float32, or float64 for a float64 model
+        return self.fc(pooled.to(torch.promote_types(pooled.dtype, torch.float32)),
+                       generator)
 
 
 # The standard deviation of a unit normal truncated to (-2, 2).

@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from medseg_tpu_torch.parallel.sharding import current_group, global_rows, local_rows
+
 
 class Conv2d(nn.Conv2d):
     """nn.Conv2d whose float32 parameters are cast to `compute_dtype` for the
@@ -84,7 +86,18 @@ class BatchNorm2d(nn.BatchNorm2d):
     with ATen's batch-norm backward for autograd; the running statistics
     then update from those under no_grad, var = invstd^-2 - eps, with no
     second pass over the activations.  num_batches_tracked is not counted
-    (the momentum is fixed)."""
+    (the momentum is fixed).
+
+    Under data parallelism (training mode inside `parallel.data_parallel(
+    group)`, world 1 too) the statistics are the global batch's, as XLA's
+    BatchNorm over a sharded batch: per channel, the sums of x and x^2 and
+    the count in float32 (float64 for a float64 input), one packed
+    all-reduce, then mean = sum/n and var = max(sum_sq/n - mean^2, 0),
+    flax's fast variance (`_compute_stats`, use_fast_variance=True).  Its
+    backward all-reduces [sum dy, sum dy*xhat] in one packed tensor and
+    keeps the weight and bias gradients local (the train step averages
+    them).  torch.nn.SyncBatchNorm is not used: its forward refuses CPU
+    tensors, and it blends the unbiased variance."""
 
     def __init__(self, *args, compute_dtype=torch.float32, **kw):
         super().__init__(*args, **kw)
@@ -94,12 +107,62 @@ class BatchNorm2d(nn.BatchNorm2d):
         x = x.to(self.compute_dtype)
         if not self.training:
             return super().forward(x)
-        y, mean, invstd = torch.native_batch_norm(
-            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        group = current_group()
+        if group is not None:
+            y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps,
+                                                  group)
+        else:
+            y, mean, invstd = torch.native_batch_norm(
+                x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+            var = invstd.pow(-2) - self.eps
         with torch.no_grad():
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(invstd.pow(-2) - self.eps, self.momentum)
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
+            self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
         return y
+
+
+def _per_channel(v: torch.Tensor) -> torch.Tensor:
+    return v[None, :, None, None]
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Training-mode BatchNorm over the global batch of a data-parallel
+    group: (y, mean, biased var); one all-reduce each way."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps: float, group):
+        acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+        xf = x.to(acc)
+        c = x.shape[1]
+        stats = torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
+                           torch.full((1,), x.numel() // c, dtype=acc, device=x.device)])
+        group.all_reduce_(stats)
+        n = stats[2 * c]
+        mean = stats[:c] / n
+        var = torch.clamp(stats[c:2 * c] / n - mean * mean, min=0.0)
+        invstd = torch.rsqrt(var + eps)
+        xhat = (xf - _per_channel(mean)) * _per_channel(invstd)
+        y = xhat * _per_channel(weight.to(acc)) + _per_channel(bias.to(acc))
+        ctx.save_for_backward(x, weight, mean, invstd, n)
+        ctx.group = group
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        c = x.shape[1]
+        dyf = dy.to(mean.dtype)
+        xhat = (x.to(mean.dtype) - _per_channel(mean)) * _per_channel(invstd)
+        sums = torch.cat([dyf.sum((0, 2, 3)), (dyf * xhat).sum((0, 2, 3))])
+        dweight = sums[c:].to(weight.dtype) if ctx.needs_input_grad[1] else None
+        dbias = sums[:c].to(weight.dtype) if ctx.needs_input_grad[2] else None
+        dx = None
+        if ctx.needs_input_grad[0]:  # the weight and bias keep this rank's sums
+            total = ctx.group.all_reduce_(sums.clone())
+            dx = ((dyf - _per_channel(total[:c] / n) - xhat * _per_channel(total[c:] / n))
+                  * _per_channel(invstd * weight.to(mean.dtype))).to(x.dtype)
+        return dx, dweight, dbias, None, None
 
 
 def max_pool(x: torch.Tensor, window: int = 2, stride: int | None = None,
@@ -136,8 +199,11 @@ def adaptive_avg_pool(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
 
 def dropout(x: torch.Tensor, p: float, generator: torch.Generator) -> torch.Tensor:
     """flax's nn.Dropout in training: keep each value with probability 1-p,
-    drawn from `generator`, and scale the kept ones by 1/(1-p)."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    drawn from `generator`, and scale the kept ones by 1/(1-p).  Under data
+    parallelism the mask is drawn for the global batch and each rank keeps
+    its rows, so W ranks draw what one process draws."""
+    shape = (global_rows(x.shape[0]),) + tuple(x.shape[1:])
+    keep = local_rows(torch.rand(shape, generator=generator, device=x.device)) < 1.0 - p
     return torch.where(keep, x / (1.0 - p), 0.0)
 
 

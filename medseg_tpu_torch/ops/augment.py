@@ -32,6 +32,7 @@ from medseg_tpu_torch.ops.kernels.photometric import fused_photometric
 from medseg_tpu_torch.ops.kernels.warp_kernel import warp_affine_kernel
 from medseg_tpu_torch.ops.warp_fast import (fast_warp_supports,
                                             photometric_threshold_ok)
+from medseg_tpu_torch.parallel.sharding import global_rows, local_rows
 
 
 class AugmentParams(NamedTuple):
@@ -48,10 +49,13 @@ class AugmentParams(NamedTuple):
 
 def sample_augment_params(gen: torch.Generator, batch: int,
                           cfg: AugmentConfig) -> AugmentParams:
-    """Draw one batch of parameters on `gen`'s device."""
+    """Draw one batch of parameters on `gen`'s device.  Under data
+    parallelism each draw is made for the global batch and this rank keeps
+    its `batch` rows, so W ranks draw what one process draws."""
+    rows = global_rows(batch)
 
     def uniform(lo=0.0, hi=1.0):
-        u = torch.rand(batch, generator=gen, device=gen.device)
+        u = local_rows(torch.rand(rows, generator=gen, device=gen.device))
         return lo + (hi - lo) * u
 
     apply_affine = uniform() < cfg.affine_p

@@ -19,6 +19,10 @@ Counterpart of medseg_tpu/train/checkpoint.py, which writes orbax trees:
   state, the optimizer's state_dict, the step count and the JAX package's
   meta fields (epoch, best_score, stage, plateau_lr).  It holds tensors and
   plain Python values only, so it loads with weights_only=True.
+
+Under data parallelism (`group`, a parallel.DataParallelGroup) rank 0
+writes and every rank then waits at a barrier, so no rank reads a file
+before it is whole; on resume every rank reads.
 """
 
 from __future__ import annotations
@@ -42,19 +46,31 @@ def resume_path(save_dir: str, name: str) -> Path:
 AUX_PREFIX = "aux."
 
 
+def _rank0_writes(group, write) -> None:
+    """write() on rank 0 (or without a group), then a barrier."""
+    if group is None or group.rank == 0:
+        write()
+    if group is not None:
+        group.barrier()
+
+
 def save_best(save_dir: str, name: str, model: nn.Module, seg: bool = False,
               meta: Optional[Dict] = None,
-              aux: Optional[Mapping[str, torch.Tensor]] = None) -> Path:
+              aux: Optional[Mapping[str, torch.Tensor]] = None, group=None) -> Path:
     """aux: small non-parameter tensors the model needs at inference,
     stored as `aux.<name>` float32 tensors; meta: a JSON sidecar."""
     path = Path(save_dir) / f"{name}_{'best_loss' if seg else 'best_acc'}.pt"
-    path.parent.mkdir(parents=True, exist_ok=True)
-    state = _cpu_state(model)
-    for k, v in (aux or {}).items():
-        state[AUX_PREFIX + k] = torch.as_tensor(v, dtype=torch.float32).cpu()
-    torch.save(state, path)
-    if meta is not None:
-        path.with_suffix(".meta.json").write_text(json.dumps(meta))
+
+    def write():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        state = _cpu_state(model)
+        for k, v in (aux or {}).items():
+            state[AUX_PREFIX + k] = torch.as_tensor(v, dtype=torch.float32).cpu()
+        torch.save(state, path)
+        if meta is not None:
+            path.with_suffix(".meta.json").write_text(json.dumps(meta))
+
+    _rank0_writes(group, write)
     return path
 
 
@@ -68,16 +84,20 @@ def split_aux(sd: Mapping[str, torch.Tensor]
 
 def save_resume(save_dir: str, name: str, model: nn.Module,
                 optimizer: torch.optim.Optimizer, step: int, epoch: int,
-                best_score: float, extra: Optional[Dict] = None) -> Path:
+                best_score: float, extra: Optional[Dict] = None, group=None) -> Path:
     path = resume_path(save_dir, name)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(".tmp")
-    torch.save({"model": _cpu_state(model),
-                "optimizer": optimizer.state_dict(),
-                "step": step,
-                "meta": {"epoch": epoch, "best_score": best_score, **(extra or {})}},
-               tmp)
-    tmp.replace(path)  # a run cut while saving keeps the previous epoch's file
+
+    def write():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(".tmp")
+        torch.save({"model": _cpu_state(model),
+                    "optimizer": optimizer.state_dict(),
+                    "step": step,
+                    "meta": {"epoch": epoch, "best_score": best_score, **(extra or {})}},
+                   tmp)
+        tmp.replace(path)  # a run cut while saving keeps the previous epoch's file
+
+    _rank0_writes(group, write)
     return path
 
 

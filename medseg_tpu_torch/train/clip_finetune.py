@@ -16,8 +16,13 @@ JAX package leaves them to XLA) -> CLIPClassifier -> CE -> backward ->
 clip + AdamW over `vision_model.*` only.  Training statistics and the
 validation sums stay on the device and are read once an epoch.
 
-Not ported: `mesh` (ROADMAP A.14) and `scan_chunk` (A.16: its CUDA form is
-a graph of the step, A.7).
+Data parallelism (`mesh`, medseg_tpu/train/clip_finetune.py:72-93), as
+train/trainer.py has it: the rank's rows of each global batch, train
+batches without ragged tails, validation padded to the group's size and
+masked, the weights broadcast from rank 0, the gradients averaged before
+the clip, the statistics the group's; rank 0 writes the checkpoint.
+
+Not ported: `scan_chunk` (A.16: its CUDA form is a graph of the step, A.7).
 """
 
 from __future__ import annotations
@@ -33,8 +38,9 @@ from medseg_tpu_torch.core import config as C
 from medseg_tpu_torch.core.config import CLIPFinetuneConfig
 from medseg_tpu_torch.core.device import DeviceLike, resolve_device
 from medseg_tpu_torch.core.precision import full_float32
-from medseg_tpu_torch.data.loader import BatchLoader
+from medseg_tpu_torch.data.loader import BatchLoader, mesh_loaders
 from medseg_tpu_torch.ops.clip_prep import clip_preprocess
+from medseg_tpu_torch.parallel.sharding import data_parallel, replicate_
 from medseg_tpu_torch.train import checkpoint as ckpt
 from medseg_tpu_torch.train import losses
 from medseg_tpu_torch.train import steps as S
@@ -52,8 +58,10 @@ def clip_train_step(model: nn.Module, optimizer: S.ClippedAdamW, images_u8: torc
     loss = losses.cross_entropy(logits, labels)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    loss, correct = S.all_reduce_step_(optimizer, loss.detach(),
+                                       (logits.detach().argmax(-1) == labels).sum())
     optimizer.step()
-    return loss.detach(), (logits.detach().argmax(-1) == labels).sum()
+    return loss, correct
 
 
 @torch.no_grad()
@@ -79,6 +87,7 @@ def finetune_clip(
     image_size: Optional[int] = None,
     log: Callable[[str], None] = print,
     device: DeviceLike = None,
+    mesh=None,
 ) -> float:
     """Finetune CLIP's vision tower; returns the best validation accuracy (%).
 
@@ -86,10 +95,18 @@ def finetune_clip(
     package's `variables`), trained in place on `device` (the card unless
     "cpu" is passed).  text_features: [num_classes, dim] L2-normalized
     prompt features.  image_size: the grid (default CLIP_IMG_SIZE, read at
-    call time; tests with tiny towers pass theirs)."""
-    device = resolve_device(device)
+    call time; tests with tiny towers pass theirs).  mesh: a
+    parallel.DataParallelGroup to train over (device defaults to its
+    rank's); the caller's loaders come back untouched."""
+    device = resolve_device(mesh.device if device is None and mesh is not None
+                            else device)
     image_size = image_size or C.CLIP_IMG_SIZE
     model.to(device)
+    rows = 1  # global rows per local row
+    if mesh is not None:
+        train_loader, val_loader = mesh_loaders(mesh, train_loader, val_loader)
+        replicate_(model, mesh)
+        rows = mesh.size
     tf = torch.as_tensor(text_features, dtype=torch.float32).to(device)
     optimizer = S.build_optimizer(cfg.lr, cfg.weight_decay, cfg.grad_clip_norm,
                                   set_trainable(model, finetune_filter("CLIP")))
@@ -97,7 +114,7 @@ def finetune_clip(
     stopper = EarlyStopping(cfg.early_stop_patience, mode="max")
     best = 0.0
     start = time.time()
-    with full_float32():
+    with full_float32(), data_parallel(mesh):
         for epoch in range(1, cfg.epochs + 1):
             S.set_learning_rate(optimizer, cosine_annealing(cfg.lr, epoch - 1, cfg.epochs))
 
@@ -110,21 +127,22 @@ def finetune_clip(
                 images, labels = images.to(device), labels.to(device)
                 loss, corr = clip_train_step(model, optimizer, images, labels, tf,
                                              image_size)
-                loss_acc += loss * images.shape[0]
+                loss_acc += loss * (images.shape[0] * rows)
                 corr_acc += corr
-                total += images.shape[0]
+                total += images.shape[0] * rows
             run_loss, correct = torch.stack([loss_acc.double(), corr_acc.double()]).tolist()
 
             model.eval()
             vloss_acc = torch.zeros((), dtype=torch.float32, device=device)
             vcorr_acc = torch.zeros((), dtype=torch.int64, device=device)
             val_total = 0
-            for (images, labels), n_real in zip(val_loader, val_loader.real_counts()):
+            for (images, labels), n_real, n_global in zip(
+                    val_loader, val_loader.real_counts(), val_loader.global_real_counts()):
                 loss_sum, corr = clip_eval_step(model, images.to(device), labels.to(device),
                                                 tf, n_real, image_size)
                 vloss_acc += loss_sum
                 vcorr_acc += corr
-                val_total += n_real
+                val_total += n_global
             val_loss, val_correct = torch.stack([vloss_acc.double(),
                                                  vcorr_acc.double()]).tolist()
             val_acc = 100.0 * val_correct / max(1, val_total)
@@ -140,7 +158,7 @@ def finetune_clip(
                     ckpt.save_best(str(Path(cfg.save_root) / "classification_models"),
                                    "CLIP", model, False,
                                    meta={"epoch": epoch, "score": val_acc},
-                                   aux={"text_features": tf})
+                                   aux={"text_features": tf}, group=mesh)
                     log(f"Saved best model (Acc: {val_acc:.2f}%)")
             if stopper.should_stop:
                 log(f"Early stopping at epoch {epoch}. Best accuracy: {best:.2f}%")

@@ -20,7 +20,12 @@ pad the same way.  The validation dice is one dice over each batch's valid
 rows, averaged over batches unweighted.  Statistics stay on the device and
 are read once an epoch.
 
-Not ported: `mesh` (ROADMAP A.14) and `scan_chunk` (A.16).
+Data parallelism (`mesh`, medseg_tpu/train/clipseg_finetune.py:78-99), as
+in clip_finetune.py: train batches drop their ragged tails (no padded
+masked tail under a mesh, :170), validation pads to the group's size, and
+the dice's sums are the global batch's (train/losses.py).
+
+Not ported: `scan_chunk` (A.16).
 """
 
 from __future__ import annotations
@@ -36,9 +41,11 @@ from medseg_tpu_torch.core import config as C
 from medseg_tpu_torch.core.config import CLIPSegFinetuneConfig
 from medseg_tpu_torch.core.device import DeviceLike, resolve_device
 from medseg_tpu_torch.core.precision import full_float32
-from medseg_tpu_torch.data.loader import BatchLoader
+from medseg_tpu_torch.data.loader import BatchLoader, mesh_loaders
 from medseg_tpu_torch.ops.clip_prep import clip_preprocess
 from medseg_tpu_torch.ops.image import resize_jax
+from medseg_tpu_torch.parallel.sharding import (all_reduce_sum, current_group,
+                                                data_parallel, replicate_)
 from medseg_tpu_torch.train import checkpoint as ckpt
 from medseg_tpu_torch.train import losses
 from medseg_tpu_torch.train import steps as S
@@ -49,11 +56,13 @@ from medseg_tpu_torch.train.schedules import EarlyStopping, cosine_annealing
 def batch_dice(probs: torch.Tensor, targets: torch.Tensor, valid: torch.Tensor,
                threshold: float = 0.5) -> torch.Tensor:
     """One dice over the batch's valid rows (clipseg_finetune.py:34-41):
-    pad rows leave every sum."""
+    pad rows leave every sum; under data parallelism the sums are the
+    global batch's."""
     v = valid.reshape((-1,) + (1,) * (probs.dim() - 1))
     p = (probs > threshold).to(torch.float32) * v
     t = (targets > threshold).to(torch.float32) * v
-    return (2.0 * (p * t).sum() + 1e-7) / (p.sum() + t.sum() + 1e-7)
+    inter, sp, st = all_reduce_sum(torch.stack([(p * t).sum(), p.sum(), t.sum()]))
+    return (2.0 * inter + 1e-7) / (sp + st + 1e-7)
 
 
 def clipseg_prep(images_u8: torch.Tensor, masks_u8: torch.Tensor, image_size: int,
@@ -88,8 +97,9 @@ def clipseg_train_step(model: nn.Module, optimizer: S.ClippedAdamW,
         loss = losses.masked_combined_loss(logits, m, valid, bce_weight, dice_weight)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    loss, = S.all_reduce_step_(optimizer, loss.detach())
     optimizer.step()
-    return loss.detach()
+    return loss
 
 
 @torch.no_grad()
@@ -98,12 +108,17 @@ def clipseg_eval_step(model: nn.Module, images_u8: torch.Tensor, masks_u8: torch
                       image_size: int, bce_weight: float = 0.5,
                       dice_weight: float = 0.5) -> Tuple[torch.Tensor, torch.Tensor]:
     """(masked loss * max(n_valid, 1), batch dice) over the first n_valid
-    rows (clipseg_finetune.py:195-204)."""
+    rows (clipseg_finetune.py:195-204).  Under data parallelism both are
+    the group's: each rank's masked loss times its own real rows (a rank
+    of pad rows alone adds 0), summed."""
     x, m = clipseg_prep(images_u8, masks_u8, image_size, logit_size)
     logits = model(x, cond=cond.expand(x.shape[0], -1))
     valid = losses.valid_mask(x.shape[0], n_valid, logits.device)
     loss = losses.masked_combined_loss(logits, m, valid, bce_weight, dice_weight)
-    return loss * max(n_valid, 1), batch_dice(torch.sigmoid(logits), m, valid)
+    dice = batch_dice(torch.sigmoid(logits), m, valid)
+    if current_group() is not None:
+        return all_reduce_sum(loss * n_valid), dice
+    return loss * max(n_valid, 1), dice
 
 
 def finetune_clipseg(
@@ -117,6 +132,7 @@ def finetune_clipseg(
     image_size: Optional[int] = None,
     log: Callable[[str], None] = print,
     device: DeviceLike = None,
+    mesh=None,
 ) -> float:
     """Finetune CLIPSeg's decoder; returns the best validation dice.
 
@@ -124,22 +140,31 @@ def finetune_clipseg(
     package's `variables`), trained in place on `device` (the card unless
     "cpu" is passed).  cond: [1, dim] conditional embedding of the fixed
     prompt.  image_size: the grid (default CLIPSEG_IMG_SIZE, read at call
-    time; tests with tiny towers pass theirs)."""
-    device = resolve_device(device)
+    time; tests with tiny towers pass theirs).  mesh: a
+    parallel.DataParallelGroup to train over (device defaults to its
+    rank's); the caller's loaders come back untouched."""
+    device = resolve_device(mesh.device if device is None and mesh is not None
+                            else device)
     image_size = image_size or C.CLIPSEG_IMG_SIZE
     model.to(device)
+    rows = 1  # global rows per local row
+    if mesh is not None:
+        train_loader, val_loader = mesh_loaders(mesh, train_loader, val_loader)
+        replicate_(model, mesh)
+        rows = mesh.size
     cond = torch.as_tensor(cond, dtype=torch.float32).to(device)
     optimizer = S.build_optimizer(cfg.lr, cfg.weight_decay, 1.0,  # clip_seg_finetuner.py:172
                                   set_trainable(model, finetune_filter("CLIPSeg")))
     logit_size = model.logit_size(image_size)
     step_kw = dict(image_size=image_size, bce_weight=cfg.bce_weight,
                    dice_weight=cfg.dice_weight)
-    bs_full = train_loader.batch_size
+    # a rank's rows of a full batch
+    bs_full, val_rows = train_loader.batch_size // rows, val_loader.batch_size // rows
 
     stopper = EarlyStopping(cfg.early_stop_patience, mode="max")
     best = 0.0
     start = time.time()
-    with full_float32():
+    with full_float32(), data_parallel(mesh):
         for epoch in range(1, cfg.epochs + 1):
             S.set_learning_rate(optimizer, cosine_annealing(cfg.lr, epoch - 1, cfg.epochs))
             model.train()
@@ -154,24 +179,24 @@ def finetune_clipseg(
                     n_valid = b
                 loss = clipseg_train_step(model, optimizer, images, masks, cond, logit_size,
                                           n_valid=n_valid, **step_kw)
-                loss_acc += loss * b
-                total += b
+                loss_acc += loss * (b * rows)
+                total += b * rows
             run_loss = loss_acc.item()
 
             model.eval()
             vloss_acc = torch.zeros((), dtype=torch.float32, device=device)
             dices = []
             val_total = 0
-            for (images, masks), n_real in zip(val_loader, val_loader.real_counts()):
+            for (images, masks), n_real, n_global in zip(
+                    val_loader, val_loader.real_counts(), val_loader.global_real_counts()):
                 images, masks = images.to(device), masks.to(device)
-                if images.shape[0] < val_loader.batch_size:
-                    images, masks = pad_rows(val_loader.batch_size - images.shape[0],
-                                             images, masks)
+                if images.shape[0] < val_rows:
+                    images, masks = pad_rows(val_rows - images.shape[0], images, masks)
                 loss_sum, dice = clipseg_eval_step(model, images, masks, cond, n_real,
                                                    logit_size, **step_kw)
                 vloss_acc += loss_sum
                 dices.append(dice)
-                val_total += n_real
+                val_total += n_global
             mean_dice = torch.stack(dices).mean() if dices else torch.zeros((), device=device)
             val_loss, val_dice = torch.stack([vloss_acc, mean_dice]).double().tolist()
             log(f"[CLIPSeg] Ep{epoch}: TrainLoss {run_loss / max(1, total):.3f} | "
@@ -186,7 +211,7 @@ def finetune_clipseg(
                     ckpt.save_best(str(Path(cfg.save_root) / "segmentation_models"),
                                    "CLIPSeg", model, True,
                                    meta={"epoch": epoch, "dice": val_dice},
-                                   aux={"cond": cond})
+                                   aux={"cond": cond}, group=mesh)
                     log(f"Saved best model (Dice: {val_dice:.4f})")
             if stopper.should_stop:
                 log(f"Early stopping at epoch {epoch}. Best dice: {best:.4f}")

@@ -1,4 +1,5 @@
-"""Losses with the reference's semantics, in float32.
+"""Losses with the reference's semantics, in float32 (float64 for float64
+logits, as a float64 model's parity runs need).
 
 Counterpart of medseg_tpu/train/losses.py:
 - cross-entropy with torch CrossEntropyLoss's label smoothing (target =
@@ -15,6 +16,12 @@ Counterpart of medseg_tpu/train/losses.py:
   forms over the valid rows of a padded batch.
 The one-hot is a comparison with an arange on the logits' device, so
 nothing here waits for the card.
+
+Under data parallelism (parallel.data_parallel) the batch-level sums, the
+dice's intersection and denominators and the IoU's intersection and
+union, reduce over the group through `all_reduce_sum`, so every rank
+computes the global batch's dice and IoU; per-sample means need no
+collective, since every rank holds the same number of rows.
 """
 
 from __future__ import annotations
@@ -22,15 +29,21 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from medseg_tpu_torch.parallel.sharding import all_reduce_sum
+
+
+def _loss_dtype(logits: torch.Tensor) -> torch.dtype:
+    return torch.promote_types(logits.dtype, torch.float32)
+
 
 def per_sample_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                              label_smoothing: float = 0.0) -> torch.Tensor:
     """[B] CE vector; masked/trimmed aggregation is the caller's choice
     (see valid_mask)."""
     num_classes = logits.shape[-1]
-    logits = logits.to(torch.float32)
+    logits = logits.to(_loss_dtype(logits))
     classes = torch.arange(num_classes, device=logits.device)
-    onehot = (labels[:, None] == classes).to(torch.float32)
+    onehot = (labels[:, None] == classes).to(logits.dtype)
     if label_smoothing:
         onehot = onehot * (1.0 - label_smoothing) + label_smoothing / num_classes
     return -(onehot * torch.log_softmax(logits, dim=-1)).sum(-1)
@@ -48,10 +61,11 @@ def valid_mask(batch: int, n_valid, device=None) -> torch.Tensor:
 
 
 def _sigmoid_bce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Elementwise optax.sigmoid_binary_cross_entropy in float32:
+    """Elementwise optax.sigmoid_binary_cross_entropy in float32 (float64
+    for float64 logits):
     -t*log_sigmoid(x) - (1-t)*log_sigmoid(-x)."""
-    logits = logits.to(torch.float32)
-    targets = targets.to(torch.float32)
+    logits = logits.to(_loss_dtype(logits))
+    targets = targets.to(logits.dtype)
     return -(targets * F.logsigmoid(logits) + (1.0 - targets) * F.logsigmoid(-logits))
 
 
@@ -87,8 +101,8 @@ def masked_batch_iou(probs: torch.Tensor, targets: torch.Tensor,
     v = _rows(valid, probs.dim())
     p = (probs > threshold).to(torch.float32) * v
     t = targets.to(torch.float32) * v
-    inter = (p * t).sum()
-    union = ((p + t) > 0).to(torch.float32).sum()
+    inter, union = all_reduce_sum(torch.stack([(p * t).sum(),
+                                               ((p + t) > 0).to(torch.float32).sum()]))
     return inter / (union + 1e-7)
 
 
@@ -96,10 +110,9 @@ def masked_dice_loss(logits: torch.Tensor, targets: torch.Tensor, valid: torch.T
                      smooth: float = 1.0) -> torch.Tensor:
     """dice_loss over the valid rows only: pad rows leave every sum."""
     v = _rows(valid, logits.dim())
-    p = torch.sigmoid(logits.to(torch.float32)) * v
-    t = targets.to(torch.float32) * v
-    inter = (p * t).sum()
-    return 1.0 - (2.0 * inter + smooth) / (p.sum() + t.sum() + smooth)
+    p = torch.sigmoid(logits.to(_loss_dtype(logits))) * v
+    t = targets.to(p.dtype) * v
+    return _dice_from_sums(p, t, smooth)
 
 
 def masked_combined_loss(logits: torch.Tensor, targets: torch.Tensor, valid: torch.Tensor,
@@ -110,10 +123,16 @@ def masked_combined_loss(logits: torch.Tensor, targets: torch.Tensor, valid: tor
 
 def dice_loss(logits: torch.Tensor, targets: torch.Tensor, smooth: float = 1.0) -> torch.Tensor:
     """1 - dice of sigmoid(logits) and the targets over the whole batch."""
-    p = torch.sigmoid(logits.to(torch.float32)).reshape(-1)
-    t = targets.to(torch.float32).reshape(-1)
-    inter = (p * t).sum()
-    return 1.0 - (2.0 * inter + smooth) / (p.sum() + t.sum() + smooth)
+    p = torch.sigmoid(logits.to(_loss_dtype(logits))).reshape(-1)
+    t = targets.to(p.dtype).reshape(-1)
+    return _dice_from_sums(p, t, smooth)
+
+
+def _dice_from_sums(p: torch.Tensor, t: torch.Tensor, smooth: float) -> torch.Tensor:
+    """1 - (2*sum(p*t) + smooth) / (sum(p) + sum(t) + smooth), the sums
+    over the global batch."""
+    inter, sp, st = all_reduce_sum(torch.stack([(p * t).sum(), p.sum(), t.sum()]))
+    return 1.0 - (2.0 * inter + smooth) / (sp + st + smooth)
 
 
 def combined_loss(logits: torch.Tensor, targets: torch.Tensor,

@@ -13,6 +13,13 @@ returned as device tensors for the caller to accumulate.  In bf16 the parameters
 float32 and the convs cast them per forward (nn/blocks.py), so gradients
 reach them through the cast, as with flax's `dtype`: no autocast, no loss
 scaling.
+
+Under data parallelism (parallel.data_parallel, the JAX steps jitted over
+a sharded batch) a train step averages the gradients over the group in one
+flattened all-reduce, together with the loss and the correct count, before
+the clip and AdamW: clipping each rank's own gradients first would give
+another update.  The eval steps return the group's loss sums, correct
+counts and IoU.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from typing import Callable, Iterable, List, Optional, Tuple
 import torch
 from torch import nn
 
+from medseg_tpu_torch.parallel.sharding import all_reduce_sum, current_group
 from medseg_tpu_torch.train import losses
 
 Prep = Callable[[torch.Generator, torch.Tensor, torch.Tensor],
@@ -76,6 +84,31 @@ def get_learning_rate(optimizer: torch.optim.Optimizer) -> float:
     return float(optimizer.param_groups[0]["lr"])
 
 
+@torch.no_grad()
+def all_reduce_step_(optimizer: torch.optim.Optimizer, loss: torch.Tensor,
+                     *counts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Under a joined data-parallel group: one all-reduce of the gradients
+    of `optimizer`'s parameters, the loss and `counts`, flattened into one
+    bucket; the gradients (in place) and the loss come back averaged over
+    the ranks, the counts summed.  Otherwise (loss, *counts) as given."""
+    group = current_group()
+    if group is None or not group.joined:
+        return (loss, *counts)
+    grads = [p.grad for g in optimizer.param_groups for p in g["params"]
+             if p.grad is not None]
+    dt = grads[0].dtype
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [t.reshape(1).to(dt) for t in (loss, *counts)])
+    group.all_reduce_(flat)
+    parts = torch.split(flat, [g.numel() for g in grads] + [1] * (1 + len(counts)))
+    for g, v in zip(grads, parts):
+        g.copy_(v.view_as(g))
+    torch._foreach_mul_(grads, 1.0 / group.size)
+    loss = (parts[len(grads)] / group.size).reshape(()).to(loss.dtype)
+    return (loss, *(v.round().reshape(()).to(c.dtype)
+                    for v, c in zip(parts[len(grads) + 1:], counts)))
+
+
 def cls_train_step(model: nn.Module, optimizer: ClippedAdamW,
                    images: torch.Tensor, labels: torch.Tensor,
                    gen: torch.Generator, label_smoothing: float = 0.1,
@@ -90,9 +123,10 @@ def cls_train_step(model: nn.Module, optimizer: ClippedAdamW,
     loss = losses.cross_entropy(out, labels, label_smoothing)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    loss, correct = all_reduce_step_(optimizer, loss.detach(),
+                                     (out.detach().argmax(-1) == labels).sum())
     optimizer.step()
-    correct = (out.detach().argmax(-1) == labels).sum()
-    return loss.detach(), correct
+    return loss, correct
 
 
 @torch.no_grad()
@@ -108,6 +142,9 @@ def cls_eval_step(model: nn.Module, images: torch.Tensor, labels: torch.Tensor,
                 * valid).sum()
     preds = out.argmax(-1)
     correct = ((preds == labels) & (valid > 0)).sum()
+    if current_group() is not None:  # the group's sums; preds stay this rank's
+        loss_sum, total = all_reduce_sum(torch.stack([loss_sum, correct.to(loss_sum.dtype)]))
+        correct = total.round().to(correct.dtype)
     return loss_sum, correct, preds
 
 
@@ -126,8 +163,9 @@ def seg_train_step(model: nn.Module, optimizer: ClippedAdamW,
     loss = losses.bce_with_logits(model(images), masks)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    loss, = all_reduce_step_(optimizer, loss.detach())
     optimizer.step()
-    return loss.detach()
+    return loss
 
 
 @torch.no_grad()
@@ -135,9 +173,10 @@ def seg_eval_step(model: nn.Module, images: torch.Tensor, masks: torch.Tensor,
                   n_valid: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(loss_sum, batch IoU) over the first n_valid rows: the masked mean
     BCE times max(n_valid, 1), and the masked batch IoU of sigmoid(logits)
-    at 0.5.  The model is in eval mode."""
+    at 0.5 (both the group's under data parallelism).  The model is in
+    eval mode."""
     out = model(images)
     valid = losses.valid_mask(images.shape[0], n_valid, out.device)
     loss = losses.masked_bce_with_logits(out, masks, valid)
     iou = losses.masked_batch_iou(torch.sigmoid(out), masks, valid)
-    return loss * max(n_valid, 1), iou
+    return all_reduce_sum(loss * max(n_valid, 1)), iou

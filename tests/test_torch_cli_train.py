@@ -137,6 +137,16 @@ def test_cli_finetune_random_init_then_eval_and_predict(tmp_path, capsys):
     ["install-data"], ["bench"], ["export-torch", "ResNet18"],
 ], ids=lambda a: "_".join(a))
 def test_cli_refuses_unported_flags(argv, capsys):
+    """argparse refuses what is not ported.  --data-parallel of train, eval
+    and the finetuners is ported now (ROADMAP A.14): argparse takes it, and
+    the command goes on to its own refusal, the no-card error without
+    --device cpu (train, eval) or the offline error without --random-init
+    (finetune-clipseg), never a silent fallback."""
+    if "--data-parallel" in argv and argv[0] != "parity":
+        match = "could not load" if argv[0].startswith("finetune") else "no CUDA device"
+        with pytest.raises(RuntimeError, match=match):
+            cli.main(argv)
+        return
     with pytest.raises(SystemExit) as e:
         cli.main(argv)
     assert e.value.code == 2

@@ -20,6 +20,7 @@ from medseg_tpu_torch.data.synthetic import synthetic_cls
 from medseg_tpu_torch.eval import csv_io
 from medseg_tpu_torch.eval import harness as H
 from medseg_tpu_torch.interop.from_jax import resnet_classifier_state_dict
+from medseg_tpu_torch.models.resnet import resnet18
 from medseg_tpu_torch.ops.augment import preprocess_eval_batch
 from tests.test_torch_resnet import flax_resnet
 
@@ -120,7 +121,11 @@ def test_segmentation_and_mesh_are_not_ported_yet(tmp_path):
     evaluates: its .pt at the tiny tower config, with the conditional
     embedding from its own text tower, gives the six metrics (the parity
     with the JAX package is tests/test_torch_clip_infer.py's).  The mesh
-    branch still waits for A.14."""
+    branch, which waited for A.14, now evaluates: over a world-1 group it
+    gives the metrics of the plain pass, and the caller's loader comes back
+    untouched (two ranks: tests/test_torch_parallel.py)."""
+    from medseg_tpu_torch.parallel import data_parallel_mesh
+
     from medseg_tpu_torch.data.synthetic import synthetic_seg
     from tests.torch_clip_helpers import tiny_clip_patched, write_clip_weights
 
@@ -130,10 +135,14 @@ def test_segmentation_and_mesh_are_not_ported_yet(tmp_path):
         res = H.evaluate_model("CLIPSeg", seg, None, EvalConfig(weights_root=str(root)),
                                log=_quiet, device="cpu")
     assert set(res) == {"iou", "dice", "pixel_accuracy", "precision", "recall", "f1"}
-    loader = BatchLoader(synthetic_cls(4, SIZE), 4, shuffle=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.14"):
-        H.evaluate_model("ResNet18", loader, {}, log=_quiet, mesh=object(),
-                         device="cpu")
+    loader = BatchLoader(synthetic_cls(5, SIZE), 4, shuffle=False, device="cpu")
+    sd = resnet18(device="cpu").state_dict()
+    plain = H.evaluate_model("ResNet18", loader, sd, log=_quiet, device="cpu")
+    meshed = H.evaluate_model("ResNet18", loader, sd, log=_quiet,
+                              mesh=data_parallel_mesh("cpu"), device="cpu")
+    assert loader.group is None and loader.pad_to_multiple is None
+    for k in ("accuracy", "precision", "recall", "f1"):
+        assert meshed[k] == plain[k], k
 
 
 def _results():
