@@ -17,10 +17,10 @@ Run from the root of a checkout.  It
    path's (B2's eval form f32 with CLIP's mean and std at 224^2 and 352^2
    for B=1 and 8) at tolerance 0, timed beside their bounds and
    `x.to(dtype)` of the same bytes;
-4. drives eleven paths at full width, each with every launch count set to
+4. drives twelve paths at full width, each with every launch count set to
    0 just before it and read just after (ingest right after the first
-   three; clip, finetune and dp before zoo: late in a run profiler sessions
-   lose records, and the zoo's readings tolerate it).  The CPU halves of
+   three, scan after seg; clip, finetune and dp before zoo: late in a run
+   profiler sessions lose records, and the zoo's readings tolerate it).  The CPU halves of
    the seg and zoo paths' gate 4 (the float32 and float64 CPU runs and the
    comparisons) run in one spawned CPU worker while the card works; it is
    stopped while a host-clock reading is taken, and drained at the end of
@@ -64,7 +64,8 @@ Run from the root of a checkout.  It
      batch, the best checkpoint loaded strictly and evaluated, 3 float32
      stage-2 steps on the card against the same 3 in float64 on the CPU
      (clipped gradients of step 1, parameters and running statistics after
-     step 3, each within twice the CPU float32 run's own distance),
+     step 3, each within twice the CPU float32 runs' own distance over
+     the CPU's reduction orders),
      the bf16 step's loss within 5% of the float32 step's, and 20
      steady-state steps under torch.cuda.set_sync_debug_mode("error").  It
      prints the stage-2 step rate (host clock), the step's device time
@@ -87,6 +88,25 @@ Run from the root of a checkout.  It
      rate, device split and its ConvTranspose and BatchNorm shares, B1's
      C=4 float32 form at B=8 and 128 beside its bound, and seg_e2e
      (4-plane augment + ResNetUnet bf16 + sigmoid > 0.5 at B=128);
+   - scan: `scan_chunk` (train/steps.ScanDrive: K train steps a CUDA
+     graph replay), full width at 256px on synthetic data.  Gates: S1
+     augment_batch (B1 with its draws) captured SCAN_K times in a graph
+     and replayed twice, bit for bit 2*SCAN_K eager calls and the same
+     generator state after (C=3 bf16 B=128, C=4 f32 B=8); S2
+     train_model("ResNet18") f32 B=32 and ("ResNetUnet") bf16 B=8, 2
+     epochs of 8 full batches and a ragged 5, scan_chunk=3 against two
+     per-step runs, all under cudnn.deterministic: bit for bit where the
+     pair is (epoch lines, final state), else within the spread of three
+     per-step runs at factor 1, the resume step equal; S3 on
+     each graphed run: one B1 a train step and one B2 a validation batch
+     in the profiler's device records, one cudaGraphLaunch a chunk, no
+     synchronization in a replay; S4 as S2 for ResNet18 bf16 B=16 under
+     NCCL world 1; S5 `finetune-clip` / `finetune-clipseg --random-init
+     --scan-chunk 3` against the commands without it (the epoch lines).
+     Readings, per-step against graphed at K=4: host and device ms a
+     step, idle share, img/s, capture ms and peak memory of ResNet18 bf16
+     B=128, ResNetUnet bf16 B=8, the NCCL world-1 ResNet18 B=16, CLIP
+     f32 B=32 and CLIPSeg f32 B=8;
    - serve: ResNet18 and ResNetUnet float32 (init_weights from SEED, random
      BN statistics) written as the reference's .pt under two weights
      roots, the classifier's head biased to COVID in one and to Healthy in
@@ -267,6 +287,7 @@ ZOO_SYNC_STEPS = 10   # ... steps under set_sync_debug_mode("error")
 ZOO_BIG_SEG_BATCH = 16  # ... AttentionUNet's step also at the JAX bench's B=16
 ZOO_PARITY_SIZE = 64  # ... card against CPU at 64px, B=2, full width
 ZOO_PARITY_BATCH = 2
+YARDSTICK_THREADS = (2, 4, 8)  # gate 4's further CPU orders: 1/2, 1/4, 1/8 of its threads
 SEED = 0
 PROFILE_SESSIONS = 3     # device_ms: profiler sessions per reading
 PROFILE_MARGIN_S = 0.05  # ... host idle at both ends of each (see _sessions)
@@ -1090,7 +1111,8 @@ def _check_card_against_cpu(card: str, path: str, what: str, build, step, loss64
 
     Gate 4 holds the card's float32 result against a float64 run of the
     same steps on the CPU: its distance from it (largest element and L2)
-    may be twice the CPU float32 run's own.  The train-mode gradient at
+    may be twice the CPU float32 runs' own, the largest over the CPU's
+    reduction orders that _compare_runs takes.  The train-mode gradient at
     256px is ill-conditioned in float32 (batch statistics over B*128*128
     values a channel, through the BatchNorms): card and CPU differed by
     4.3e-3 of ResNet18's gradient L2 norm, mostly in early BatchNorm
@@ -1098,7 +1120,7 @@ def _check_card_against_cpu(card: str, path: str, what: str, build, step, loss64
     both holds and means something.  Card against CPU is printed as a
     reading.
 
-    factor: the multiple of the CPU float32 run's distance allowed (2).
+    factor: the multiple of the CPU float32 runs' distance allowed (2).
     card64: the same steps also run in float64 on the card, and gate 4
     then also holds them to the CPU's float64 run within 1e-9 of each
     part's largest magnitude: the same arithmetic in both, so only a
@@ -1142,7 +1164,8 @@ def _check_card_against_cpu(card: str, path: str, what: str, build, step, loss64
         runs["cpu"] = _parity_run(build, step, loss64, images, targets, "cpu", torch.float32)
         runs["float64"] = _parity_run(build, step, loss64, images, targets, "cpu",
                                       torch.float64, keep_init=update_floor > 0)
-        lines, failure = _compare_runs(runs, zero_grad=zero_grad, **opts)
+        more = functools.partial(_cpu_order_run, build, step, loss64, images, targets)
+        lines, failure = _compare_runs(runs, zero_grad=zero_grad, more_cpu=more, **opts)
         print("\n".join(lines))
         if failure:
             fail(failure)
@@ -1189,11 +1212,66 @@ def _parity_run(build, step, loss64, images, targets, device: str, dtype,
     return losses, grads, {k: v.cpu() for k, v in model.state_dict().items()}, init
 
 
+def _cpu_order_run(build, step, loss64, images, targets, threads: int):
+    """_parity_run's float32 CPU run with `threads` threads: another order
+    of the CPU's sums (_compare_runs' yardstick)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        return _parity_run(build, step, loss64, images, targets, "cpu", torch.float32)
+    finally:
+        torch.set_num_threads(before)
+
+
 def _compare_runs(runs: dict, card: str, path: str, what: str, factor: float,
-                  card64: bool, grad_floor: float, update_floor: float, zero_grad=None):
+                  card64: bool, grad_floor: float, update_floor: float, zero_grad=None,
+                  more_cpu=None):
     """Gate 4's comparisons of the runs of _check_card_against_cpu ("card",
     "cpu", "float64" and with card64 "card float64"): returns (the lines
-    to print, the failure or None)."""
+    to print, the failure or None).
+
+    The yardstick is the CPU float32 runs' largest distance from float64
+    over the reduction orders taken: the CPU's thread count sets the order
+    of its sums, and one order's distance is a weak sample of float32's
+    spread (gate4_spread.py, AttentionUNet at 64px from 8 random inits on
+    an H100's host: the step-1 gradients' largest element read 1.20-3.84x
+    apart over 8, 4, 2 and 1 threads; the card's was 2.26x the 8-thread
+    run's at one init, and at most 1.49x the four's largest).
+    more_cpu(threads) -> one more CPU float32 run with that many threads:
+    when the card fails against the first order alone, the runs at
+    YARDSTICK_THREADS' fractions of its threads are taken and the
+    comparisons made again over all of them.  A card that passes against
+    one order passes against their largest, so this is the comparison
+    over every order, with the extra runs skipped where they cannot
+    change the outcome."""
+    cpus = ["cpu"]
+    lines, failed = _compare_parts(runs, cpus, card, path, what, factor, card64,
+                                   grad_floor, update_floor, zero_grad)
+    if more_cpu is not None and any(f.startswith("float32 ") for f in failed):
+        threads = torch.get_num_threads()
+        for t in sorted({max(1, threads // d) for d in YARDSTICK_THREADS} - {threads},
+                        reverse=True):
+            cpus.append(f"cpu at {t} threads")
+            runs[cpus[-1]] = more_cpu(t)
+        lines.append(f"[{card}] {path}: the card's float32 run fails against the CPU's "
+                     f"{threads}-thread run alone ({'; '.join(failed)}); the yardstick is now "
+                     f"the largest distance of {len(cpus)} CPU reduction orders "
+                     f"({', '.join(cpus[1:])} added):")
+        more, failed = _compare_parts(runs, cpus, card, path, what, factor, card64,
+                                      grad_floor, update_floor, zero_grad)
+        lines += more[1:]
+    if not failed:
+        return lines, None
+    return lines, (f"{path}: gate 4 failed in {'; '.join(failed)} (float32: farther from "
+                   f"float64 than {factor:g}x the CPU's; float64: not the CPU's)")
+
+
+def _compare_parts(runs: dict, cpus: list, card: str, path: str, what: str,
+                   factor: float, card64: bool, grad_floor: float, update_floor: float,
+                   zero_grad=None):
+    """_compare_runs' comparisons with the yardstick taken over the CPU
+    float32 runs named in `cpus` (runs["cpu"] first): returns (the lines,
+    the checks that failed)."""
     lines = []
     init64 = runs["float64"][3]
 
@@ -1220,14 +1298,16 @@ def _compare_runs(runs: dict, card: str, path: str, what: str, factor: float,
     lines.append(f"[{card}] {path}, card vs CPU float32 (TF32 off), {what}, lr {PARITY_LR}, "
                  f"3 steps: losses {l_card} vs {l_cpu} (float64 {l_ref}); largest step-1 |g| "
                  f"{gmax:.3e}")
-    ok = True
+    over = f" (largest of {len(cpus)} orders)" if len(cpus) > 1 else ""
+    failed = []
     for part, pick in (("step-1 clipped gradients", step1),
                        ("parameters after step 3", step3),
                        ("running statistics after step 3", stats)):
         if not pick(runs["float64"]):
             continue
-        d, floor = dist("card", "float64", pick), dist("cpu", "float64", pick)
-        cc = dist("card", "cpu", pick)
+        d, cc = dist("card", "float64", pick), dist("card", "cpu", pick)
+        floors = [dist(c, "float64", pick) for c in cpus]
+        floor = {k: max(f[k] for f in floors) for k in ("max", "l2")}
         tol = {"max": factor * floor["max"], "l2": factor * floor["l2"]}
         rounding = ""
         if grad_floor and pick is step1:
@@ -1243,11 +1323,12 @@ def _compare_runs(runs: dict, card: str, path: str, what: str, factor: float,
             rounding = (f" or, in L2, {update_floor:g} of float64's own update "
                         f"({moved:.3e}; largest element: the AdamW bound 2*3*lr)")
         passed = d["max"] <= tol["max"] and d["l2"] <= tol["l2"]
-        ok &= passed
+        if not passed:
+            failed.append(f"float32 {part}")
         lines.append(f"[{card}] {path}, {part}: card vs float64 max_abs_err="
                      f"{d['max']:.3e}, L2 {d['l2']:.3e} ({d['rel']:.3e} of float64's); tol "
                      f"{factor:g}x the CPU float32's distance from float64{rounding}: max "
-                     f"{tol['max']:.3e}, L2 {tol['l2']:.3e}; CPU float32 vs float64 max "
+                     f"{tol['max']:.3e}, L2 {tol['l2']:.3e}; CPU float32 vs float64{over} max "
                      f"{floor['max']:.3e}, L2 {floor['l2']:.3e}; card vs CPU max "
                      f"{cc['max']:.3e}, L2 {cc['l2']:.3e}; farthest tensors (card vs "
                      f"float64, relative L2) {d['worst']}: {'pass' if passed else 'FAIL'}")
@@ -1255,7 +1336,8 @@ def _compare_runs(runs: dict, card: str, path: str, what: str, factor: float,
             d64 = dist("card float64", "float64", pick)
             scale = max(float(t.abs().max()) for t in pick(runs["float64"]).values())
             passed = d64["max"] <= 1e-9 * scale
-            ok &= passed
+            if not passed:
+                failed.append(f"float64 {part}")
             lines.append(f"[{card}] {path}, {part} in float64: card vs CPU max_abs_err="
                          f"{d64['max']:.3e} tol {1e-9 * scale:.3e} (1e-9 of the largest "
                          f"magnitude, {scale:.3e}): {'pass' if passed else 'FAIL'}")
@@ -1264,18 +1346,17 @@ def _compare_runs(runs: dict, card: str, path: str, what: str, factor: float,
         noise = {r: max(float(runs[r][1][n].abs().max()) for n in zeros)
                  for r in ("card", "cpu", "float64")}
         passed = max(noise["card"], noise["cpu"]) <= 1e-4 * gmax
-        ok &= passed
+        if not passed:
+            failed.append("the zero gradients")
         lines.append(f"[{card}] {path}, the {len(zeros)} gradients zero in exact arithmetic "
                      f"(left out above): largest |g| card {noise['card']:.3e}, CPU "
                      f"{noise['cpu']:.3e}, float64 {noise['float64']:.3e}; tol {1e-4 * gmax:.3e} "
                      f"(1e-4 of the largest |g|): {'pass' if passed else 'FAIL'}")
     # AdamW moves an element by at most ~lr a step whatever its gradient
     p_max = dist("card", "float64", lambda run: {n: run[2][n] for n in runs["cpu"][1]})["max"]
-    if not ok or p_max > 2 * 3 * PARITY_LR:
-        return lines, (f"{path}: the card's float32 steps are farther from float64 "
-                       f"than {factor:g}x the CPU's, its float64 steps are not the CPU's, "
-                       f"or a parameter moved by {p_max:.3e} > 2*3*lr")
-    return lines, None
+    if p_max > 2 * 3 * PARITY_LR:
+        failed.append(f"a parameter moved by {p_max:.3e} > 2*3*lr")
+    return lines, failed
 
 
 class _CpuWorker:
@@ -1451,7 +1532,8 @@ def _cpu_half(job: dict):
                                   keep_init=job["update_floor"] > 0)
     opts = {k: job[k] for k in ("card", "path", "what", "factor", "card64", "grad_floor",
                                 "update_floor")}
-    lines, failure = _compare_runs(runs, **opts)
+    more = functools.partial(_cpu_order_run, build, step, loss64, images, targets)
+    lines, failure = _compare_runs(runs, more_cpu=more, **opts)
     lines.append(f"[{job['card']}] {job['path']}: gate 4's CPU half took "
                  f"{time.perf_counter() - t0:.1f} s in the CPU worker (stops included)")
     return lines, failure
@@ -4561,6 +4643,545 @@ def _dp_check_ranks(card: str, got: list, work: Path, ref64: dict, perms: list,
                    f"{DP_EVAL} samples", work / "results0", work / "results_one")
 
 
+SCAN_K = 3           # scan path: steps a graph in the gates (S2, S4, S5)
+SCAN_FULL = 8        # ... full train batches an epoch (on the card: the warm-up step,
+#                      two chunks of 3 and a remainder batch) and a ragged tail of
+SCAN_TAIL = 5        # ... rows
+SCAN_S2_BATCH = 32   # ... ResNet18 float32's batch in S2 (ResNetUnet: the recipe's 8)
+SCAN_S4_BATCH = 16   # ... ResNet18 bf16's batch under NCCL world 1 (S4, as dp path (a))
+SCAN_READ_K = 4      # readings: steps a graph
+SCAN_READ_CHUNKS = 4  # ... chunks timed by host clock, against as many eager steps
+SCAN_SESSION_STEPS = 2  # ... eager steps a profiler session (a graph: one replay)
+
+
+def _scan_augment_gate(card: str) -> None:
+    """S1: SCAN_K calls of augment_batch (one B1 launch each, with its
+    draws from a registered generator) captured into one CUDA graph and
+    replayed twice, against 2 * SCAN_K eager calls from a generator seeded
+    alike: every output bit for bit, and the two generators' states equal
+    after (the replays advanced the offset as the eager calls did).  The
+    capture counts SCAN_K launches on the wrapper (recorded once); the
+    profiler records 2 * SCAN_K warp kernels in the replays.  Cases: the
+    cls train form (C=3, bf16 out, B=128) and the seg form (the mask as a
+    4th plane, float32 out, B=8)."""
+    from medseg_tpu_torch.ops.augment import augment_batch
+
+    rng = np.random.default_rng(SEED + 40)
+    for what, b, seg, dtype in (("C=3 bf16 B=128", BATCH, False, torch.bfloat16),
+                                ("C=4 float32 B=8", SEG_BATCH, True, torch.float32)):
+        images = torch.from_numpy(rng.integers(0, 256, (b, SIZE, SIZE, 3),
+                                               dtype=np.uint8)).cuda()
+        masks = (torch.from_numpy((rng.random((b, SIZE, SIZE)) > 0.5).astype(np.uint8)
+                                  * 255).cuda() if seg else None)
+
+        def call(g):
+            x, m = augment_batch(g, images, masks, out_dtype=dtype)
+            return x if m is None else torch.cat([x, m], -1)
+
+        call(torch.Generator(device="cuda").manual_seed(SEED + 1))  # first-call setup
+        eager_gen = torch.Generator(device="cuda").manual_seed(SEED)
+        want = [call(eager_gen) for _ in range(2 * SCAN_K)]
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        outs = [torch.empty_like(want[0]) for _ in range(SCAN_K)]
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(gen)
+        torch.cuda.synchronize()
+        reset_counts()
+        with torch.cuda.graph(graph):
+            for o in outs:
+                o.copy_(call(gen))
+        read_counts(f"scan path S1 {what}, the capture", {"warp_affine": SCAN_K})
+        got = []
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                graph.replay()
+                got += [o.clone() for o in outs]
+            torch.cuda.synchronize()
+        n_b1 = sum(e.count for e in _device_ops(prof) if "warp_affine_kernel<" in e.key)
+        bad = [i for i, (x, y) in enumerate(zip(got, want)) if not torch.equal(x, y)]
+        if bad:
+            err = max((x.float() - y.float()).abs().max().item() for x, y in zip(got, want))
+            fail(f"scan path S1 {what}: graphed calls {bad} differ from the eager ones "
+                 f"(max |diff| {err:.3e})")
+        if not torch.equal(gen.get_state(), eager_gen.get_state()):
+            fail(f"scan path S1 {what}: the graphed generator's state is not the eager one's")
+        if n_b1 != 2 * SCAN_K:
+            fail(f"scan path S1 {what}: the profiler recorded {n_b1} warp kernels in two "
+                 f"replays of {SCAN_K} calls")
+        print(f"[{card}] scan path S1, augment_batch {what}: {SCAN_K} calls in a CUDA graph, "
+              f"replayed twice, equal bit for bit to {2 * SCAN_K} eager calls, the "
+              f"generators' states equal after; {n_b1} warp kernels recorded in the replays")
+        del graph, outs, got, want
+
+
+def _scan_state(model) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def _scan_train_run(name: str, ds, batch: int, dtype: str, k: int, group=None,
+                    observe: bool = False) -> dict:
+    """train_model(name) for 2 epochs (ResNet18: the stage switch after the
+    first) on SCAN_FULL full train batches + SCAN_TAIL rows and one
+    validation batch, from SEED, with scan_chunk k.  The checkpoint writers
+    are replaced by recorders (the resume's step).  observe: also under
+    torch.profiler, each replay under set_sync_debug_mode("error"), the
+    drive kept.  Returns the epoch lines, the final state on the CPU, the
+    resume steps, the wall seconds, peak memory, the launch counts and,
+    when observing, the profiler and the drive."""
+    from medseg_tpu_torch.core.config import AugmentConfig, TrainConfig
+    from medseg_tpu_torch.data.loader import BatchLoader
+    from medseg_tpu_torch.train import checkpoint as ckpt
+    from medseg_tpu_torch.train import steps as S
+    from medseg_tpu_torch.train import train_model
+    from torch.profiler import ProfilerActivity, profile
+
+    n_train = SCAN_FULL * batch + SCAN_TAIL
+    train = BatchLoader(ds, batch, shuffle=True, seed=SEED, indices=np.arange(n_train),
+                        device_cache=True)
+    val = BatchLoader(ds, batch, shuffle=False, device_cache=True,
+                      indices=np.arange(n_train, n_train + batch))
+    logs, steps, drives = [], [], []
+    saved = ckpt.save_resume, ckpt.save_best, S.scan_drive, S.ScanDrive._replay
+
+    def keep_drive(*a, **kw):
+        drives.append(saved[2](*a, **kw))
+        return drives[-1]
+
+    def checked_replay(self, idx):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            saved[3](self, idx)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    ckpt.save_resume = lambda d, n, m, o, step, *a, **kw: steps.append(step)
+    ckpt.save_best = lambda *a, **kw: None
+    if observe:
+        S.scan_drive, S.ScanDrive._replay = keep_drive, checked_replay
+    prof = None
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if observe
+              else contextlib.nullcontext()) as prof:
+            res = train_model(name, train, val,
+                              TrainConfig(epochs=2, stage1_epochs=1, compute_dtype=dtype,
+                                          save_root=str(HERE / "build")),
+                              AugmentConfig(), seed=SEED, save=True, log=logs.append,
+                              mesh=group, scan_chunk=k)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ckpt.save_resume, ckpt.save_best, S.scan_drive, S.ScanDrive._replay = saved
+    counts = {n: fn.launches for n, fn in kernel_counts().items()}
+    return {"lines": [ln for ln in logs if re.match(r"\[\w+\] Ep\d", ln)],
+            "state": _scan_state(res.model), "steps": steps, "wall": wall,
+            "peak": torch.cuda.max_memory_allocated() / 2**30, "counts": counts,
+            "prof": prof, "drive": drives[0] if drives else None}
+
+
+def _scan_distance(x: dict, y: dict) -> float:
+    """The L2 distance of two states over their floating tensors, relative
+    to the first's L2 norm."""
+    num = den = 0.0
+    for key, v in x.items():
+        if v.is_floating_point():
+            num += float((v.double() - y[key].double()).square().sum())
+            den += float(v.double().square().sum())
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def _scan_exact(a: dict, b: dict) -> bool:
+    """Two runs' epoch lines and final states agree bit for bit."""
+    return a["lines"] == b["lines"] and all(
+        torch.equal(v, b["state"][key]) for key, v in a["state"].items())
+
+
+def _scan_compare(card: str, what: str, runs: list, g: dict) -> None:
+    """S2's rule: per-step runs `runs`, graphed run g, all under
+    cudnn.deterministic.  Where the first two agree bit for bit (epoch
+    lines, final state), g must too.  Otherwise `runs` holds a third, and
+    g's state lies from the nearest of them within the largest pairwise
+    relative L2 distance of the three (a factor of 1 on their spread),
+    and each number of g's epoch lines within the three's largest
+    difference plus one unit of its last printed digit.  The resume
+    checkpoints' steps are equal in every case."""
+    a = runs[0]
+    if any(r["steps"] != a["steps"] for r in runs + [g]) or not a["steps"]:
+        fail(f"scan path {what}: resume steps per-step {[r['steps'] for r in runs]}, graphed "
+             f"{g['steps']}")
+    if _scan_exact(a, runs[1]):
+        bad = [key for key, v in a["state"].items() if not torch.equal(v, g["state"][key])]
+        if g["lines"] != a["lines"] or bad:
+            fail(f"scan path {what}: the per-step pair agrees bit for bit and the graphed run "
+                 f"does not: lines {g['lines']} vs {a['lines']}; {len(bad)} tensors differ "
+                 f"({bad[:4]}), relative L2 {_scan_distance(a['state'], g['state']):.3e}")
+        verdict = "bit for bit equal to the per-step pair, which agrees bit for bit"
+    else:
+        pairs = [(x, y) for i, x in enumerate(runs) for y in runs[i + 1:]]
+        spread = max(_scan_distance(x["state"], y["state"]) for x, y in pairs)
+        near = min(_scan_distance(r["state"], g["state"]) for r in runs)
+        for i, lg in enumerate(g["lines"]):
+            nums = [np.array([float(v) for v in re.findall(r"-?\d+\.\d+", r["lines"][i])])
+                    for r in runs]
+            ng = np.array([float(v) for v in re.findall(r"-?\d+\.\d+", lg)])
+            allow = np.max([np.abs(x - y) for j, x in enumerate(nums) for y in nums[j + 1:]],
+                           axis=0) + 1.0001e-3
+            if len(ng) != len(nums[0]) or np.any(np.abs(ng - nums[0]) > allow):
+                fail(f"scan path {what}: epoch line {lg!r} outside the per-step runs' "
+                     f"{[r['lines'][i] for r in runs]}")
+        if len(g["lines"]) != len(a["lines"]) or near > spread:
+            fail(f"scan path {what}: the graphed state lies {near:.3e} (relative L2) from the "
+                 f"nearest per-step run, the {len(runs)} per-step runs at most {spread:.3e} "
+                 f"apart (factor 1)")
+        verdict = (f"the per-step pair differs under cudnn.deterministic; within the spread "
+                   f"of {len(runs)} per-step runs at factor 1: they lie at most {spread:.3e} "
+                   f"apart (relative L2), the graphed run {near:.3e} from the nearest")
+    print(f"[{card}] scan path {what}: {verdict}; resume steps {g['steps']}; epoch lines:\n"
+          + "\n".join(f"  per-step {la}\n  graphed  {lg}"
+                      for la, lg in zip(a["lines"], g["lines"])))
+    walls = " / ".join(f"{r['wall']:.3f}" for r in runs)
+    print(f"[{card}] scan path {what}: wall s per-step {walls}, graphed {g['wall']:.3f} "
+          f"(profiled: {g['prof'] is not None}); peak memory allocated per-step "
+          f"{a['peak']:.3f} GiB, graphed {g['peak']:.3f} GiB")
+
+
+def _scan_launch_gate(card: str, what: str, run: dict, n_val: int, tail: bool) -> None:
+    """S3 on an observed graphed run: the profiler's device records hold one
+    B1 a train step and one B2 a validation batch; one cudaGraphLaunch per
+    chunk; the wrapper counted the eager steps' launches and each capture's
+    SCAN_K once; every replay ran under set_sync_debug_mode("error").
+    tail: the epoch ends in a ragged step (not under a group, which drops
+    it)."""
+    drive, prof = run["drive"], run["prof"]
+    steps_per_epoch = SCAN_FULL + int(tail)
+    chunks = (SCAN_FULL - 1) // SCAN_K
+    ops = _device_ops(prof)
+    b1 = sum(e.count for e in ops if "warp_affine_kernel<" in e.key)
+    b2 = sum(e.count for e in ops if "photometric_kernel<" in e.key)
+    launches = sum(1 for e in prof.profiler.kineto_results.events()
+                   if "cudaGraphLaunch" in e.name())
+    want = {"b1": 2 * steps_per_epoch, "b2": 2 * n_val, "replays": 2 * chunks,
+            "captures": 2, "graph launches": 2 * chunks,
+            "wrapper b1": 2 * (steps_per_epoch - chunks * SCAN_K + SCAN_K),
+            "wrapper b2": 2 * n_val}
+    got = {"b1": b1, "b2": b2, "replays": drive.replays, "captures": drive.captures,
+           "graph launches": launches, "wrapper b1": run["counts"]["warp_affine"],
+           "wrapper b2": run["counts"]["fused_photometric"]}
+    if got != want:
+        fail(f"scan path S3 {what}: {got}, expected {want}")
+    print(f"[{card}] scan path S3 {what}: device records {b1} B1 in {2 * steps_per_epoch} "
+          f"train steps and {b2} B2 in {2 * n_val} validation batches; {launches} "
+          f"cudaGraphLaunch for {drive.replays} chunks of {SCAN_K} ({drive.captures} "
+          f"captures, the last {drive.capture_s * 1e3:.1f} ms); the wrapper counted "
+          f"{got['wrapper b1']} B1 (each capture's {SCAN_K} once); no synchronization in "
+          f"a replay")
+
+
+def _scan_train_gates(card: str, name: str, ds, batch: int, dtype: str, n_val: int = 1,
+                      group=None, label: str = "S2") -> None:
+    """S2 (S4 under a group): two per-step runs (three where those two
+    differ) and one graphed (observed, S3) of _scan_train_run, all under
+    cudnn.deterministic (a setting of the gate: the port leaves cuDNN's
+    choice of algorithm alone), compared by _scan_compare."""
+    what = f"{label} {name} {dtype} B={batch}"
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        runs = [_scan_train_run(name, ds, batch, dtype, 0, group) for _ in range(2)]
+        if not _scan_exact(*runs):
+            runs.append(_scan_train_run(name, ds, batch, dtype, 0, group))
+        g = _scan_train_run(name, ds, batch, dtype, SCAN_K, group, observe=True)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    _scan_compare(card, what, runs, g)
+    _scan_launch_gate(card, what, g, n_val, tail=group is None)
+
+
+def _scan_reading(card: str, what: str, batch: int, body, images_d, targets_d,
+                  gens=(), group=None, double_k: bool = False) -> None:
+    """Readings of one step kind, per-step against graphed: host ms a step
+    (host clock over SCAN_READ_K * SCAN_READ_CHUNKS steps ending in a
+    synchronize), device ms a step (profiler: sessions of
+    SCAN_SESSION_STEPS eager steps, of one replay of SCAN_READ_K steps),
+    the idle share, img/s, the capture's ms (instantiation included) and
+    peak memory (allocated and reserved).  body(images, targets) is the
+    step, accumulating on the card; the batches are random rows of the
+    device cache.  double_k: also a graph of 2 * SCAN_READ_K steps' peak
+    memory (does a graph's memory grow with K?)."""
+    from medseg_tpu_torch.train import steps as S
+
+    k, steps = SCAN_READ_K, SCAN_READ_K * SCAN_READ_CHUNKS
+    rng = np.random.default_rng(SEED + 42)
+    n = images_d.shape[0]
+    idx = torch.from_numpy(np.stack([np.sort(rng.choice(n, batch, replace=False))
+                                     for _ in range(2 * steps)])).cuda()
+
+    def eager(i):
+        body(images_d.index_select(0, idx[i]), targets_d.index_select(0, idx[i]))
+
+    def peak():
+        return (torch.cuda.max_memory_allocated() / 2**30,
+                torch.cuda.max_memory_reserved() / 2**30)
+
+    for i in range(2):
+        eager(i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with host_clock():
+        t0 = time.perf_counter()
+        for i in range(steps):
+            eager(i)
+        torch.cuda.synchronize()
+        host_eager = (time.perf_counter() - t0) / steps * 1e3
+    peak_eager = peak()
+    times, _ = session_times(lambda: eager(0), SCAN_SESSION_STEPS, what=f"{what}, per-step",
+                             lost=SCAN_SESSION_STEPS)
+    dev_eager = float(np.median(times))
+
+    drive = S.scan_epoch(body, k, "cuda", gens, group)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    drive(images_d, targets_d, idx[:k])  # the capture, then its replay
+    capture_ms = drive.capture_s * 1e3
+    with host_clock():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for c in range(SCAN_READ_CHUNKS):
+            drive(images_d, targets_d, idx[steps + c * k:steps + (c + 1) * k])
+        torch.cuda.synchronize()
+        host_graph = (time.perf_counter() - t0) / steps * 1e3
+    peak_graph = peak()
+    times, _ = session_times(lambda: drive(images_d, targets_d, idx[:k]), 1,
+                             what=f"{what}, graphed", lost=k)
+    dev_graph = float(np.median(times)) / k
+    drive.reset()
+    extra = ""
+    if double_k:
+        big = S.scan_epoch(body, 2 * k, "cuda", gens, group)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        big(images_d, targets_d, idx[:2 * k])
+        torch.cuda.synchronize()
+        extra = (f"; a graph of {2 * k} steps: peak {peak()[0]:.3f} GiB allocated, "
+                 f"{peak()[1]:.3f} reserved, capture {big.capture_s * 1e3:.1f} ms")
+        big.reset()
+    for mode, host, dev, pk in (("per-step", host_eager, dev_eager, peak_eager),
+                                (f"graphed K={k}", host_graph, dev_graph, peak_graph)):
+        print(f"[{card}] scan path reading, {what}, {mode}: host {host:.3f} ms a step "
+              f"({batch * 1e3 / host:.1f} img/s), device {dev:.4f} ms a step, idle "
+              f"{1.0 - dev / host:.1%}; peak memory {pk[0]:.3f} GiB allocated, {pk[1]:.3f} "
+              f"reserved")
+    print(f"[{card}] scan path reading, {what}: capture + instantiate {capture_ms:.1f} ms "
+          f"for {k} steps{extra}")
+
+
+def _scan_train_reading(card: str, name: str, batch: int, group=None, world: int = 1,
+                        seed: int = SEED + 43) -> None:
+    """_scan_reading of the train step of ResNet18 or ResNetUnet, bf16, B
+    rows (this rank's, under a group of `world` ranks: its all-reduces in
+    the graph), stage 2 with every parameter trainable, from a seeded init
+    at full width, on synthetic 256px data of 4 * B rows from `seed` in the
+    card's memory."""
+    from medseg_tpu_torch.core.registry import get_model
+    from medseg_tpu_torch.data.synthetic import synthetic_cls, synthetic_seg
+    from medseg_tpu_torch.models.resnet import init_weights
+    from medseg_tpu_torch.ops.augment import augment_batch
+    from medseg_tpu_torch.parallel import data_parallel
+    from medseg_tpu_torch.train import steps as S
+    from medseg_tpu_torch.train.freeze import finetune_filter, set_trainable
+
+    seg = name == "ResNetUnet"
+    ds = (synthetic_seg if seg else synthetic_cls)(n=4 * batch, img_size=SIZE, seed=seed)
+    model = get_model(name)["factory"](dtype=torch.bfloat16, device="cuda")
+    init_weights(model, torch.Generator(device="cuda").manual_seed(SEED))
+    opt = S.build_optimizer(1e-6, 5e-4, 1.0, set_trainable(model.train(), finetune_filter(name)))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    acc = torch.zeros((), device="cuda")
+    if seg:
+        def body(x, m):
+            acc.add_(S.seg_train_step(model, opt, x, m, gen, prep=lambda g, x, m: (
+                augment_batch(g, x, m, out_dtype=torch.bfloat16))))
+    else:
+        def body(x, y):
+            acc.add_(S.cls_train_step(model, opt, x, y, gen, 0.1, prep=lambda g, x, y: (
+                augment_batch(g, x, out_dtype=torch.bfloat16)[0], y))[0])
+    what = f"{name} bf16 B={batch}" + (f" under NCCL world {world}" if group else "")
+    with data_parallel(group):
+        _scan_reading(card, what, batch, body, torch.from_numpy(ds.images).cuda(),
+                      torch.from_numpy(ds.masks if seg else ds.labels).cuda(), [gen], group,
+                      double_k=group is None and not seg)
+    if not math.isfinite(acc.item()):
+        fail(f"scan path reading {what}: a loss is not finite")
+
+
+def _scan_readings(card: str, nccl) -> None:
+    """The readings of _scan_reading for ResNet18 bf16 B=128, ResNetUnet
+    bf16 B=8, ResNet18 bf16 B=16 under the NCCL world-1 group
+    (_scan_train_reading), and CLIP's (B=32) and CLIPSeg's (B=8) float32
+    finetune steps, each from a seeded init at full width, on synthetic
+    256px data in the card's memory."""
+    from medseg_tpu_torch.apps import cli
+    from medseg_tpu_torch.core.config import (CLIP_IMG_SIZE, CLIPSEG_IMG_SIZE,
+                                              CLIPFinetuneConfig, CLIPSegFinetuneConfig)
+    from medseg_tpu_torch.core.precision import full_float32
+    from medseg_tpu_torch.data.synthetic import synthetic_cls, synthetic_seg
+    from medseg_tpu_torch.train import steps as S
+    from medseg_tpu_torch.train.clip_finetune import clip_train_step
+    from medseg_tpu_torch.train.clipseg_finetune import clipseg_train_step
+    from medseg_tpu_torch.train.freeze import finetune_filter, set_trainable
+
+    def on_card(ds, seg):
+        return (torch.from_numpy(ds.images).cuda(),
+                torch.from_numpy(ds.masks if seg else ds.labels).cuda())
+
+    for name, batch, group in (("ResNet18", BATCH, None), ("ResNetUnet", SEG_BATCH, None),
+                               ("ResNet18", SCAN_S4_BATCH, nccl)):
+        _scan_train_reading(card, name, batch, group)
+
+    with full_float32():
+        model, tf = cli.random_init_clip()
+        cfg = CLIPFinetuneConfig()
+        opt = S.build_optimizer(cfg.lr, cfg.weight_decay, cfg.grad_clip_norm,
+                                set_trainable(model.train(), finetune_filter("CLIP")))
+        tf = torch.from_numpy(tf).cuda()
+        acc = torch.zeros((), device="cuda")
+
+        def clip_body(x, y):
+            acc.add_(clip_train_step(model, opt, x, y, tf, CLIP_IMG_SIZE)[0])
+
+        _scan_reading(card, f"CLIP finetune float32 B={cfg.batch_size}", cfg.batch_size,
+                      clip_body, *on_card(synthetic_cls(n=4 * cfg.batch_size, img_size=SIZE,
+                                                        seed=SEED + 44), False))
+        del model, opt, clip_body
+        model, cond = cli.random_init_clipseg()
+        cfg = CLIPSegFinetuneConfig()
+        opt = S.build_optimizer(cfg.lr, cfg.weight_decay, 1.0,
+                                set_trainable(model.train(), finetune_filter("CLIPSeg")))
+        cond = torch.from_numpy(cond).cuda()
+        logit = model.logit_size(CLIPSEG_IMG_SIZE)
+
+        def clipseg_body(x, m):
+            acc.add_(clipseg_train_step(model, opt, x, m, cond, logit, CLIPSEG_IMG_SIZE))
+
+        _scan_reading(card, f"CLIPSeg finetune float32 B={cfg.batch_size}", cfg.batch_size,
+                      clipseg_body, *on_card(synthetic_seg(n=4 * cfg.batch_size,
+                                                           img_size=SIZE, seed=SEED + 45),
+                                             True))
+        del model, opt, clipseg_body
+    if not math.isfinite(acc.item()):
+        fail("scan path reading: a finetune loss is not finite")
+
+
+def _scan_cli_gate(card: str, work: Path) -> None:
+    """S5: `finetune-clip --random-init` and `finetune-clipseg --random-init`
+    (2 epochs) with `--scan-chunk SCAN_K` against the same commands without
+    it, on the finetune path's caches (CLIP: 142 train samples, B=32: the
+    warm-up step, one chunk of 3 and a ragged 14; CLIPSeg: 53, B=8: the
+    warm-up, one chunk, 2 remainder steps and the padded tail of 5), one
+    weights root for all (each best .pt overwrites the last): the epoch
+    lines as in S2.  The second per-step command runs only when the first
+    and the graphed one disagree: where they agree, the graphed lines equal
+    a per-step run's, which passes S2's rule whatever the second gives."""
+    from medseg_tpu_torch.data.packed import save_packed
+    from medseg_tpu_torch.data.synthetic import synthetic_cls, synthetic_seg
+
+    packed = work / "packed"
+    save_packed(synthetic_cls(n=FT_TRAIN_CLS, img_size=SIZE, seed=SEED), str(packed),
+                "train_cls")
+    save_packed(synthetic_seg(n=FT_TRAIN_SEG, img_size=SIZE, seed=SEED + 1), str(packed),
+                "train_seg")
+    common = ["--cache-dir", str(packed), "--weights-root", str(work / "weights"),
+              "--epochs", str(FT_EPOCHS), "--random-init"]
+    for cmd, name in (("finetune-clip", "CLIP"), ("finetune-clipseg", "CLIPSeg")):
+        def lines(extra):
+            text = _cli(card, [cmd] + extra + common, {}, path="scan path S5")
+            _ft_epochs(text, name, FT_EPOCHS)
+            return [ln for ln in text.splitlines() if ln.startswith(f"[{name}] Ep")]
+
+        a, g = lines([]), lines(["--scan-chunk", str(SCAN_K)])
+        if g == a:
+            print(f"[{card}] scan path S5, {cmd} --scan-chunk {SCAN_K}: epoch lines equal "
+                  f"to the per-step command's")
+            continue
+        b = lines([])
+        if a == b:
+            fail(f"scan path S5 {cmd}: the per-step pair agrees ({a}) and the graphed "
+                 f"command does not ({g})")
+        for la, lb, lg in zip(a, b, g):
+            na, nb, ng = (np.array([float(v) for v in re.findall(r"-?\d+\.\d+", ln)])
+                          for ln in (la, lb, lg))
+            if np.any(np.abs(ng - na) > np.abs(na - nb) + 1.0001e-3):
+                fail(f"scan path S5 {cmd}: {lg!r} outside the per-step pair's {la!r} / {lb!r}")
+        print(f"[{card}] scan path S5, {cmd} --scan-chunk {SCAN_K}: within the per-step "
+              f"pair's spread ({a} / {b}; graphed {g})")
+
+
+def run_scan_path(card: str) -> dict:
+    """`scan_chunk` on the card (train/steps.ScanDrive).  S1 augment_batch
+    in a graph against eager calls (_scan_augment_gate); S2
+    train_model("ResNet18") float32 B=32 and ("ResNetUnet") bf16 B=8,
+    2 epochs, scan_chunk=SCAN_K against per-step runs (_scan_compare),
+    with S3 on the graphed run (_scan_launch_gate); S4 the same for
+    ResNet18 bf16 B=16 under NCCL world 1 (MEDSEG_* naming one process, as
+    dp path (a)); S5 the CLI's finetuners with --scan-chunk
+    (_scan_cli_gate); then the readings (_scan_readings).  Returns no
+    launches for the kernels line: a graph's launches are counted from
+    the profiler's device records (S3)."""
+    import torch.distributed as tdist
+
+    from medseg_tpu_torch.data.synthetic import synthetic_cls, synthetic_seg
+    from medseg_tpu_torch.parallel import data_parallel_mesh, initialize_from_env
+
+    t0 = time.perf_counter()
+    _scan_augment_gate(card)
+    t1 = time.perf_counter()
+    _scan_train_gates(card, "ResNet18", synthetic_cls(
+        n=(SCAN_FULL + 1) * SCAN_S2_BATCH + SCAN_TAIL, img_size=SIZE, seed=SEED + 46),
+        SCAN_S2_BATCH, "float32")
+    _scan_train_gates(card, "ResNetUnet", synthetic_seg(
+        n=(SCAN_FULL + 1) * SEG_BATCH + SCAN_TAIL, img_size=SIZE, seed=SEED + 47),
+        SEG_BATCH, "bfloat16")
+    t2 = time.perf_counter()
+    keys = ("MEDSEG_COORDINATOR", "MEDSEG_NUM_PROCESSES", "MEDSEG_PROCESS_ID")
+    saved_env = {k: os.environ.pop(k, None) for k in keys}
+    prompt_ids = os.environ.pop("MEDSEG_PROMPT_IDS", None)
+    (HERE / "build").mkdir(exist_ok=True)
+    try:
+        os.environ.update(MEDSEG_COORDINATOR=f"127.0.0.1:{_free_port()}",
+                          MEDSEG_NUM_PROCESSES="1", MEDSEG_PROCESS_ID="0")
+        if not initialize_from_env():
+            fail("scan path: initialize_from_env did not join under MEDSEG_*")
+        nccl = data_parallel_mesh()
+        if tdist.get_backend() != "nccl":
+            fail(f"scan path: S4 joined {tdist.get_backend()}, not NCCL")
+        _scan_train_gates(card, "ResNet18", synthetic_cls(
+            n=(SCAN_FULL + 1) * SCAN_S4_BATCH + SCAN_TAIL, img_size=SIZE, seed=SEED + 48),
+            SCAN_S4_BATCH, "bfloat16", group=nccl, label="S4 (NCCL world 1)")
+        t3 = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+            _scan_cli_gate(card, Path(tmp))
+        t4 = time.perf_counter()
+        _scan_readings(card, nccl)
+    finally:
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+        for k, v in saved_env.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+        if prompt_ids is not None:
+            os.environ["MEDSEG_PROMPT_IDS"] = prompt_ids
+    print(f"[{card}] scan path: S1 {t1 - t0:.1f} s, S2 + S3 {t2 - t1:.1f} s, S4 "
+          f"{t3 - t2:.1f} s, S5 {t4 - t3:.1f} s, readings {time.perf_counter() - t4:.1f} s")
+    return {}
+
+
 INGEST_PER_CLASS = 100  # ingest path: 299x299 PNGs a class (the Kaggle set's size)
 INGEST_UNMASKED = 5     # ... the last of each class have no mask
 INGEST_MASK = 256       # ... masks at 256x256, as the Kaggle set's lung masks
@@ -5005,8 +5626,8 @@ def _drive(card: str, name: str) -> int:
     print(f"[{card}] kernel checks and the aug+infer, eval and stem paths: "
           f"{time.perf_counter() - t0:.1f} s")
     paths = {"ingest": run_ingest_path, "train": run_train_path, "seg": run_seg_path,
-             "serve": run_serve_path, "clip": run_clip_path, "finetune": run_finetune_path,
-             "dp": run_dp_path, "zoo": run_zoo_path}
+             "scan": run_scan_path, "serve": run_serve_path, "clip": run_clip_path,
+             "finetune": run_finetune_path, "dp": run_dp_path, "zoo": run_zoo_path}
     returned = {}
     for path, run in paths.items():
         t0 = time.perf_counter()

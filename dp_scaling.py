@@ -13,14 +13,24 @@ of 4 steps (the step's device time and NCCL's kernels in it), and one
 float64 step on 2 rows a rank.  Then one process on cuda:0 runs that
 float64 step on the assembled global batch: the ranks' loss and every
 parameter and running statistic must lie within 1e-9 of it, and the ranks
-must agree bit for bit.  It prints one line a world and a JSON line of the
-readings, beside the card's name and power limit; it exits non-zero
-without RANKS cards or on any failure.  It imports nothing of JAX.
+must agree bit for bit.  At world RANKS each rank then runs
+chip_smoke.py's scan-path gates S2/S3 over the group (its S4 at this
+world): `train_model("ResNet18", scan_chunk=3)` bf16, B rows a rank,
+against per-step runs, bit for bit where two per-step runs agree, with
+the BatchNorm and gradient-bucket all-reduces inside the CUDA graph, one
+B1 a step in the device records; and the graphed step's readings (host
+and device ms, idle share, img/s, capture ms, peak memory) against the
+per-step one's.  Rank 0 prints those lines.  It prints one line a world
+and a JSON line of the readings, beside the card's name and power limit;
+it exits non-zero without RANKS cards or on any failure.  It imports
+nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
 import sys
@@ -90,11 +100,35 @@ def _rank_main(rank: int, world: int, port: int, work: str, steps: int, batch: i
             out["nccl_ms"] = sum(e.device_time_total for e in nccl) / 4 / 1e3
             out["nccl_kernels"] = sum(e.count for e in nccl) / 4
             out["f64"] = _f64_step(group, world)
+        if world > 1:
+            del model, opt
+            _scan_gates(group, world, batch)
         torch.save(out, Path(work) / f"w{world}.rank{rank}.pt")
     finally:
         import torch.distributed as tdist
 
         tdist.destroy_process_group()
+
+
+def _scan_gates(group, world: int, batch: int) -> None:
+    """chip_smoke.py's scan-path S2/S3 gates and its train-step reading at
+    this world, NCCL's collectives in the graph; rank 0 prints."""
+    import chip_smoke as cs
+    from medseg_tpu_torch.data.synthetic import synthetic_cls
+
+    card = cs.card_label()
+    quiet = contextlib.redirect_stdout(io.StringIO()) if group.rank else contextlib.nullcontext()
+    with quiet:
+        t0 = time.perf_counter()
+        ds = synthetic_cls(n=(cs.SCAN_FULL + 1) * batch * world + cs.SCAN_TAIL,
+                           img_size=cs.SIZE, seed=cs.SEED + 48)
+        cs._scan_train_gates(card, "ResNet18", ds, batch * world, "bfloat16", group=group,
+                             label=f"S4 (NCCL world {world})")
+        del ds
+        cs._scan_train_reading(card, "ResNet18", batch, group, world,
+                               seed=cs.SEED + 43 + group.rank)
+        print(f"[{card}] world {world}: scan_chunk gates and reading "
+              f"{time.perf_counter() - t0:.1f} s")
 
 
 def _f64_step(group, world: int) -> dict:

@@ -3,6 +3,7 @@
     python -m medseg_tpu_torch.apps.cli split    # seed-42 stratified 80/10/10 CSVs
     python -m medseg_tpu_torch.apps.cli pack     # decode+resize into packed caches
     python -m medseg_tpu_torch.apps.cli train [MODELS...] [--epochs 20] [--profile DIR]
+                                              [--scan-chunk K]
     python -m medseg_tpu_torch.apps.cli eval  [--batch-size 16] [--compare DIR]
     python -m medseg_tpu_torch.apps.cli parity [--reference DIR] [--tolerance 0.5]
     python -m medseg_tpu_torch.apps.cli finetune-clip    --random-init
@@ -48,8 +49,13 @@ nn.DataParallel, so several GPUs take one process each, e.g.
     MEDSEG_PROCESS_ID=0 python -m medseg_tpu_torch.apps.cli train --data-parallel &
     MEDSEG_PROCESS_ID=1 python -m medseg_tpu_torch.apps.cli train --data-parallel
 
+`--scan-chunk K` (train, finetune-clip, finetune-clipseg) runs whole
+chunks of K train steps of an epoch as one CUDA-graph replay on the card,
+and the same steps eagerly on the CPU, with the same results as without it
+(train/steps.scan_epoch_driver).  With `--data-parallel` it needs an NCCL
+group: under gloo on the card the command raises.
+
 Not registered, so argparse refuses them (ROADMAP):
-- --scan-chunk (A.16: its CUDA form is a graph of the step, A.7);
 - --auto-restart (A.16: decided not to port; it restarted after relay drops);
 - `install-data` (a download), `bench` (A.7) and `export-torch` (the port
   reads and writes the reference's .pt key names directly).
@@ -71,6 +77,10 @@ DEFAULT_TRAIN_MODELS = ["ResNet50", "ResNet18", "VGG16", "VGG19",
 CLIP_NAME = "openai/clip-vit-base-patch32"
 CLIPSEG_NAME = "CIDAS/clipseg-rd64-refined"
 FINETUNE_VAL_FRACTION = 0.1111  # medseg_tpu/apps/cli.py:295
+SCAN_HELP = ("run K {} steps per dispatched program (a CUDA graph of K steps "
+             "over the card's dataset cache, replayed once per chunk; exact same "
+             "math/RNG stream: removes the host's per-step dispatch; composes with "
+             "--data-parallel)")
 DP_HELP = ("{}: here one process per GPU, joined by MEDSEG_COORDINATOR / "
            "MEDSEG_NUM_PROCESSES / MEDSEG_PROCESS_ID; without them a world-1 "
            "group on this process's device")
@@ -95,10 +105,13 @@ def _cmd_pack(args):
 
 def _loaders(cache_dir: str, task: str, batch_size: int, val_fraction: float, device):
     """(train, validation) loaders over `train_{task}`, split by
-    split_train_val with seed 0 (medseg_tpu/apps/cli.py:58-75)."""
+    split_train_val with seed 0 (medseg_tpu/apps/cli.py:58-75).  The device
+    is resolved first: without a card it raises before reading the caches."""
+    from medseg_tpu_torch.core.device import resolve_device
     from medseg_tpu_torch.data.loader import BatchLoader, split_train_val
     from medseg_tpu_torch.data.packed import load_packed
 
+    device = resolve_device(device)
     ds = load_packed(cache_dir, f"train_{task}")
     tr_idx, va_idx = split_train_val(len(ds), val_fraction)
     train = BatchLoader(ds, batch_size, shuffle=True, indices=tr_idx,
@@ -143,7 +156,7 @@ def _cmd_train(args):
                               cfg.val_fraction, device=args.device)
         with trace_context(args.profile, args.device):
             res = train_model(name, train, val, cfg, resume=args.resume,
-                              device=args.device, mesh=mesh)
+                              device=args.device, mesh=mesh, scan_chunk=args.scan_chunk)
         results[name] = res.best_score
 
     print("\n\n=============== Training Summary ===============")
@@ -319,7 +332,8 @@ def _cmd_finetune(args):
     model, aux = random_init(args.device)
     train, val = _loaders(args.cache_dir, task, cfg.batch_size, FINETUNE_VAL_FRACTION,
                           device=args.device)
-    finetune(train, val, model, aux, cfg, device=args.device, mesh=_mesh_if(args))
+    finetune(train, val, model, aux, cfg, device=args.device, mesh=_mesh_if(args),
+             scan_chunk=args.scan_chunk)
 
 
 def _cmd_demo(args):
@@ -388,6 +402,7 @@ def main(argv=None):
     sp.add_argument("--resume", action="store_true")
     sp.add_argument("--data-parallel", action="store_true",
                     help=DP_HELP.format("shard batches over all devices (Mesh('data'))"))
+    sp.add_argument("--scan-chunk", type=int, default=0, help=SCAN_HELP.format("train"))
     sp.add_argument("--profile", default=None,
                     help="torch.profiler trace directory (TensorBoard-loadable)")
     sp = add("eval", _cmd_eval)
@@ -408,6 +423,8 @@ def main(argv=None):
         sp = add(ft_name, _cmd_finetune)
         sp.add_argument("--data-parallel", action="store_true",
                         help=DP_HELP.format("shard batches over all devices (Mesh('data'))"))
+        sp.add_argument("--scan-chunk", type=int, default=0,
+                        help=SCAN_HELP.format("finetune") + "; the step draws nothing")
         sp.add_argument("--epochs", type=int, default=20)
         sp.add_argument("--batch-size", type=int, default=None)
         sp.add_argument("--random-init", action="store_true",
@@ -447,5 +464,19 @@ def main(argv=None):
     args.fn(args)
 
 
-if __name__ == "__main__":
+def _run_as_command() -> None:
+    """main() as `python -m medseg_tpu_torch.apps.cli` runs it, one command a
+    process: then the process leaves the group the MEDSEG_* variables
+    joined before the interpreter's teardown, which can otherwise abort a
+    rank that still holds its gloo group ("terminate called without an
+    active exception", exit -6) after the command's work is done.  On an
+    exception the group is left to the teardown, as before."""
+    import torch.distributed as dist
+
     main()
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    _run_as_command()

@@ -104,30 +104,32 @@ class BatchLoader:
         return out
 
     def epoch_index_batches(self):
-        """One epoch's batch indices: ([n_full, B] int32 with rows sorted,
-        tail_idx or None).  Consumes the shuffle RNG exactly like one
-        __iter__ pass."""
-        order = self.indices.copy()
-        if self.shuffle:
-            self._rng.shuffle(order)
-        bs = self.batch_size
-        stop = self._stop(len(order))
-        n_full = stop // bs
-        full = np.sort(order[:n_full * bs].reshape(n_full, bs), axis=1)
-        tail = np.sort(order[n_full * bs:stop]) if stop > n_full * bs else None
-        return full.astype(np.int32), tail
+        """One epoch's batch indices for the scan-epoch driver
+        (train/steps.scan_epoch_driver): ([n_full, b] int64 rows of the full
+        batches; the ragged tail's rows or None), the batches one __iter__
+        pass gathers, from the same shuffle draw: under a group this rank's
+        rows of each global batch; without one the JAX loader's indices
+        (medseg_tpu/data/loader.py:106-124), whose tail pad_to_multiple
+        does not pad."""
+        batches = list(self._batch_indices(pad=self.group is not None))
+        n_full = self._stop(self.num_samples) // self.batch_size
+        width = self.batch_size // (self.group.size if self.group is not None else 1)
+        full = np.stack(batches[:n_full]) if n_full else np.zeros((0, width))
+        return full.astype(np.int64), (batches[n_full] if len(batches) > n_full else None)
 
-    def _batch_indices(self) -> Iterator[np.ndarray]:
+    def _batch_indices(self, pad: bool = True) -> Iterator[np.ndarray]:
+        """One epoch's batch indices, each batch sorted; pad: pad a ragged
+        batch to pad_to_multiple (if set)."""
         order = self.indices.copy()
         if self.shuffle:
             self._rng.shuffle(order)
         bs = self.batch_size
         for start in range(0, self._stop(len(order)), bs):
             idx = np.sort(order[start:start + bs])  # sorted reads are faster on memmaps
-            if self.pad_to_multiple:
-                pad = (-len(idx)) % self.pad_to_multiple
-                if pad:
-                    idx = np.concatenate([idx, np.repeat(idx[-1:], pad)])
+            if pad and self.pad_to_multiple:
+                n_pad = (-len(idx)) % self.pad_to_multiple
+                if n_pad:
+                    idx = np.concatenate([idx, np.repeat(idx[-1:], n_pad)])
             if self.group is not None:
                 idx = idx[batch_sharding(self.group, len(idx))]
             yield idx

@@ -16,6 +16,10 @@ bits as alpha=1, beta=0 and no flip, with no per-sample tensors to build.
 On the card, `preprocess_eval_batch` is one launch of that form
 (ops/augment.py).  For a CPU tensor the wrapper runs the plain version.
 For a CUDA tensor it launches the kernel or raises; it never falls back.
+`fused_photometric.launches` counts the wrapper's launches: under CUDA
+graph capture (train/steps.ScanDrive) a launch is recorded and counted
+once, and its replays are not counted; count a graphed path's launches
+from the profiler's device records.
 """
 
 from __future__ import annotations

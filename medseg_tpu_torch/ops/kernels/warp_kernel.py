@@ -17,6 +17,13 @@ For a CPU tensor the wrapper runs the plain version.  For a CUDA tensor it
 launches the kernel or raises; it never falls back.  `planar=True` returns
 the JAX kernel's [B, C*H, W] layout (channel-major rows), which the kernel
 writes directly; the fused stem (ops/kernels/stem_kernel.py) reads it.
+
+The launch goes to the current stream, so a CUDA graph capture records it
+(train/steps.ScanDrive); the first call, which builds the library and sets
+the kernel's shared-memory attribute, must come before the capture.
+`warp_affine_kernel.launches` counts the wrapper's launches: a captured
+launch is counted once, when it is recorded, and its replays are not;
+count a graphed path's launches from the profiler's device records.
 """
 
 from __future__ import annotations

@@ -25,7 +25,8 @@ the trainer, the finetuners and the harness enter around their loops;
 Only three collectives are used: all_reduce, all_gather (the list form)
 and broadcast, which gloo also offers for CUDA tensors.  Each call adds
 one to `COLLECTIVE_COUNTS` (a world-1 group without a process group calls
-none).
+none); under CUDA graph capture (train/steps.ScanDrive, NCCL only) a call
+is counted once, when it is recorded, and not at each replay.
 """
 
 from __future__ import annotations

@@ -22,7 +22,11 @@ batches without ragged tails, validation padded to the group's size and
 masked, the weights broadcast from rank 0, the gradients averaged before
 the clip, the statistics the group's; rank 0 writes the checkpoint.
 
-Not ported: `scan_chunk` (A.16: its CUDA form is a graph of the step, A.7).
+`scan_chunk` K > 1 (medseg_tpu/train/clip_finetune.py:48-61, 109-170)
+runs whole chunks of K steps as one CUDA-graph replay on the card, the
+same eager step K times on the CPU, the rest per step
+(train/steps.scan_epoch_driver); the step draws nothing, and the graph is
+captured anew every epoch after its first step, as train/trainer.py does.
 """
 
 from __future__ import annotations
@@ -88,6 +92,7 @@ def finetune_clip(
     log: Callable[[str], None] = print,
     device: DeviceLike = None,
     mesh=None,
+    scan_chunk: int = 0,
 ) -> float:
     """Finetune CLIP's vision tower; returns the best validation accuracy (%).
 
@@ -97,7 +102,8 @@ def finetune_clip(
     prompt features.  image_size: the grid (default CLIP_IMG_SIZE, read at
     call time; tests with tiny towers pass theirs).  mesh: a
     parallel.DataParallelGroup to train over (device defaults to its
-    rank's); the caller's loaders come back untouched."""
+    rank's); the caller's loaders come back untouched.  scan_chunk: K > 1
+    steps per CUDA-graph replay over the loader's device cache."""
     device = resolve_device(mesh.device if device is None and mesh is not None
                             else device)
     image_size = image_size or C.CLIP_IMG_SIZE
@@ -115,21 +121,29 @@ def finetune_clip(
     best = 0.0
     start = time.time()
     with full_float32(), data_parallel(mesh):
+        # statistics stay on the device, one read an epoch, in tensors made
+        # once: a captured chunk adds into them
+        loss_acc = torch.zeros((), dtype=torch.float32, device=device)
+        corr_acc = torch.zeros((), dtype=torch.int64, device=device)
+
+        def train_step(images, labels):
+            loss, corr = clip_train_step(model, optimizer, images, labels, tf, image_size)
+            loss_acc.add_(loss * (images.shape[0] * rows))
+            corr_acc.add_(corr)
+
+        drive = S.scan_drive(train_loader, scan_chunk, train_step, device, (), mesh, log)
         for epoch in range(1, cfg.epochs + 1):
             S.set_learning_rate(optimizer, cosine_annealing(cfg.lr, epoch - 1, cfg.epochs))
-
-            # statistics stay on the device: one read an epoch
             model.train()
-            loss_acc = torch.zeros((), dtype=torch.float32, device=device)
-            corr_acc = torch.zeros((), dtype=torch.int64, device=device)
+            loss_acc.zero_()
+            corr_acc.zero_()
             total = 0
-            for images, labels in train_loader:
-                images, labels = images.to(device), labels.to(device)
-                loss, corr = clip_train_step(model, optimizer, images, labels, tf,
-                                             image_size)
-                loss_acc += loss * (images.shape[0] * rows)
-                corr_acc += corr
-                total += images.shape[0] * rows
+
+            def ran(n: int, b: int) -> None:
+                nonlocal total
+                total += n * b * rows
+
+            S.train_epoch(train_loader, drive, device, ran, train_step)
             run_loss, correct = torch.stack([loss_acc.double(), corr_acc.double()]).tolist()
 
             model.eval()

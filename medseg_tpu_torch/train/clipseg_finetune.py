@@ -25,7 +25,11 @@ in clip_finetune.py: train batches drop their ragged tails (no padded
 masked tail under a mesh, :170), validation pads to the group's size, and
 the dice's sums are the global batch's (train/losses.py).
 
-Not ported: `scan_chunk` (A.16).
+`scan_chunk` K > 1 (medseg_tpu/train/clipseg_finetune.py:55-66, 179-235)
+runs whole chunks of K full batches as one CUDA-graph replay on the card,
+the same eager step K times on the CPU, and the remainder and the padded
+masked tail per step (train/steps.scan_epoch_driver); the graph is
+captured anew every epoch after its first step, as train/trainer.py does.
 """
 
 from __future__ import annotations
@@ -133,6 +137,7 @@ def finetune_clipseg(
     log: Callable[[str], None] = print,
     device: DeviceLike = None,
     mesh=None,
+    scan_chunk: int = 0,
 ) -> float:
     """Finetune CLIPSeg's decoder; returns the best validation dice.
 
@@ -142,7 +147,8 @@ def finetune_clipseg(
     prompt.  image_size: the grid (default CLIPSEG_IMG_SIZE, read at call
     time; tests with tiny towers pass theirs).  mesh: a
     parallel.DataParallelGroup to train over (device defaults to its
-    rank's); the caller's loaders come back untouched."""
+    rank's); the caller's loaders come back untouched.  scan_chunk: K > 1
+    steps per CUDA-graph replay over the loader's device cache."""
     device = resolve_device(mesh.device if device is None and mesh is not None
                             else device)
     image_size = image_size or C.CLIPSEG_IMG_SIZE
@@ -165,22 +171,33 @@ def finetune_clipseg(
     best = 0.0
     start = time.time()
     with full_float32(), data_parallel(mesh):
+        # the train loss stays on the device, one read an epoch, in a tensor
+        # made once: a captured chunk adds into it
+        loss_acc = torch.zeros((), dtype=torch.float32, device=device)
+
+        def train_step(images, masks):
+            """One step of a full batch, or of the ragged tail padded to one
+            with a masked loss; its loss accumulates on the device."""
+            b, n_valid = images.shape[0], None
+            if b < bs_full:
+                images, masks = pad_rows(bs_full - b, images, masks)
+                n_valid = b
+            loss = clipseg_train_step(model, optimizer, images, masks, cond, logit_size,
+                                      n_valid=n_valid, **step_kw)
+            loss_acc.add_(loss * (b * rows))
+
+        drive = S.scan_drive(train_loader, scan_chunk, train_step, device, (), mesh, log)
         for epoch in range(1, cfg.epochs + 1):
             S.set_learning_rate(optimizer, cosine_annealing(cfg.lr, epoch - 1, cfg.epochs))
             model.train()
-            loss_acc = torch.zeros((), dtype=torch.float32, device=device)
+            loss_acc.zero_()
             total = 0
-            for images, masks in train_loader:
-                images, masks = images.to(device), masks.to(device)
-                b = images.shape[0]
-                n_valid = None
-                if b < bs_full:  # the ragged tail: padded, masked loss
-                    images, masks = pad_rows(bs_full - b, images, masks)
-                    n_valid = b
-                loss = clipseg_train_step(model, optimizer, images, masks, cond, logit_size,
-                                          n_valid=n_valid, **step_kw)
-                loss_acc += loss * (b * rows)
-                total += b * rows
+
+            def ran(n: int, b: int) -> None:
+                nonlocal total
+                total += n * b * rows
+
+            S.train_epoch(train_loader, drive, device, ran, train_step)
             run_loss = loss_acc.item()
 
             model.eval()

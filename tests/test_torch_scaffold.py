@@ -20,8 +20,8 @@ from medseg_tpu_torch.ops.warp_fast import warp_affine_fast
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "medseg_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                                   ROOT / "dp_scaling.py"]
+PORT_FILES = sorted((ROOT / "medseg_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "dp_scaling.py", ROOT / "gate4_spread.py"]
 # transformers too: the card's machine lacks it, and the port reads HF
 # state dicts by their names alone
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "medseg_tpu", "transformers")

@@ -299,6 +299,34 @@ def case_trainer(group, work: Path) -> dict:
     return {"logs": logs, "best": res.best_score, "saved": saved, **_params(res.model)}
 
 
+def case_scan(group, work: Path) -> dict:
+    """train_model("ResNet18") float32 at 32px over the group, per step and
+    with scan_chunk=2 (tests/test_torch_scan_epoch.py): 14 train samples
+    in batches of 4 from the device cache (3 steps an epoch, the tail of 2
+    dropped: a chunk of 2 and a remainder step) and 5 validation ones, 2
+    epochs with the stage switch after the first.  Returns each run's epoch
+    lines and final state."""
+    from medseg_tpu_torch.core.config import TrainConfig
+    from medseg_tpu_torch.data.loader import BatchLoader
+    from medseg_tpu_torch.data.synthetic import synthetic_cls
+    from medseg_tpu_torch.train.trainer import train_model
+
+    ds = synthetic_cls(n=19, img_size=IMG, seed=6)
+    cfg = TrainConfig(epochs=2, stage1_epochs=1, lr=1e-6, stage1_lr=1e-3,
+                      compute_dtype="float32", save_root=str(work / f"scan-w{group.size}"))
+    out = {}
+    for tag, k in (("step", 0), ("scan", 2)):
+        logs = []
+        res = train_model(
+            "ResNet18", BatchLoader(ds, 4, shuffle=True, seed=2, indices=np.arange(14),
+                                    device_cache=True, device="cpu"),
+            BatchLoader(ds, 4, shuffle=False, indices=np.arange(14, 19), device="cpu"),
+            cfg, save=False, log=logs.append, device="cpu", mesh=group, scan_chunk=k)
+        out[tag] = {"logs": [ln for ln in logs if ln.startswith("[ResNet18] Ep")],
+                    "state": {n: v.detach().clone() for n, v in res.model.state_dict().items()}}
+    return out
+
+
 def tiny_clipseg():
     """The tiny CLIPSeg of tests/torch_clip_helpers.py, seeded."""
     from medseg_tpu_torch.core.registry import get_model
@@ -371,7 +399,7 @@ def case_collectives(group, work: Path) -> dict:
 
 
 CASES = {"collectives": case_collectives, "bn": case_bn, "cls": case_cls, "explicit": case_explicit, "eval": case_eval,
-         "seg": case_seg, "trainer": case_trainer, "clipseg": case_clipseg}
+         "seg": case_seg, "trainer": case_trainer, "clipseg": case_clipseg, "scan": case_scan}
 
 
 def main(argv) -> None:
