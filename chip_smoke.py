@@ -17,14 +17,15 @@ Run from the root of a checkout.  It
    path's (B2's eval form f32 with CLIP's mean and std at 224^2 and 352^2
    for B=1 and 8) at tolerance 0, timed beside their bounds and
    `x.to(dtype)` of the same bytes;
-4. drives twelve paths at full width, each with every launch count set to
+4. drives thirteen paths at full width, each with every launch count set to
    0 just before it and read just after (ingest right after the first
-   three, scan after seg; clip, finetune and dp before zoo: late in a run
-   profiler sessions lose records, and the zoo's readings tolerate it).  The CPU halves of
-   the seg and zoo paths' gate 4 (the float32 and float64 CPU runs and the
-   comparisons) run in one spawned CPU worker while the card works; it is
-   stopped while a host-clock reading is taken, and drained at the end of
-   the zoo path:
+   three, scan after seg, twins after serve; the zoo's five models after
+   twins and before clip, so that their gate-4 CPU halves, the worker's
+   largest, overlap the card's work; the zoo's eval and server last, then
+   the worker's drain).  The CPU halves of the seg and zoo paths' gate 4 (the
+   float32 and float64 CPU runs and the comparisons) run in one spawned
+   CPU worker while the card works; it is stopped while a host-clock
+   reading is taken, and drained at the end of the zoo path:
    - aug+infer: a synthetic packed set at 256px, BatchLoader(device_cache=
      True), augment_batch (one warp-kernel launch with the photometric
      epilogue) -> ResNet18 bf16 forward -> argmax -> classification_metrics;
@@ -41,7 +42,8 @@ Run from the root of a checkout.  It
    - ingest: from the dataset's PNGs to the demo through
      medseg_tpu_torch.apps.cli.main in this process: 3 classes x 100
      X-ray-like 299x299 PNGs (masks at 256x256, none for the last 5 of a
-     class), `split`, `pack` (the native C++ loader when g++ and libpng
+     class; apps.eda.get_dataset_stats must count 100 images and 95
+     masks a class), `split`, `pack` (the native C++ loader when g++ and libpng
      build it, else cv2), `train ResNet18 ResNetUnet --epochs 2 --profile
      DIR` at full width, `eval`, `eval --compare` and `parity --reference`
      against copies of its own CSVs and against a copy with one metric
@@ -148,6 +150,30 @@ Run from the root of a checkout.  It
      B2 launches a group, VGG16 on 224 and the U-Net on 256, every overlay
      at its request's size, the same with R2AttUnet as the segmenter, and
      one B=8 group's device time beside its host clock;
+   - twins: the opt-in lowerings, full width, random weights from SEED.
+     Gates: T1 augment_batch(s2d=True) (C=3 bf16, B=128 at 256px)
+     launches exactly one B1, in its planar form, and nothing else, and
+     equals space_to_depth(augment_batch(s2d=False)) from the same
+     generator state bit for bit; preprocess_eval_batch(s2d=True) one B2,
+     the shuffle of the plain call bit for bit.  T2 each twin against its
+     default lowering on the same weights and batch at 64px (resnet18
+     stem_s2d on T1's layout, resnet_unet up_as_dot, attention_unet
+     s2d_up + fused_gates, r2attu_net use_scan + s2d_up + fused_gates):
+     the train-mode output, the gradients of its loss and the running
+     statistics after it, in float64 at B=2 within 1e-9 of their
+     magnitude, and in float32 at B=8 (TF32 off) within 2x (R2: 7x) the
+     default float32 runs' largest distance from the default's float64
+     (row orders on the card, and when the twin fails against those the
+     CPU's thread orders too: gate 4's rule).  T3 a clean ResNet18
+     float32 B=8 train step inside nan_check_mode, a NaN weight's forward
+     and a NaN made in the backward raise FloatingPointError naming an
+     operation, assert_finite names exactly the poisoned key.  Readings:
+     FoldedStem + bn1 + ReLU + pool against the standard stem at B=128
+     bf16; for ResNet18 B=128 (stem_s2d), ResNetUnet B=8 (up_as_dot) and
+     AttentionUNet B=8 (s2d_up, fused_gates, both), default against twin,
+     a bf16 train step's and eval forward's device time, device
+     operations and batch-norm kernels' share, and the BatchNorm modules'
+     share of the step replayed (_family_reading);
    - clip: CLIP (ViT-B/32 at 224, the full 49408-token text tower) and
      CLIPSeg (rd64-refined, ViT-B/16 at 352) float32, init_weights from
      SEED, written as the reference's HF-named .pt (~1.2 GB, removed
@@ -246,6 +272,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 HERE = Path(__file__).resolve().parent
 
@@ -1927,17 +1954,17 @@ def _mask_gate(card: str, ds) -> None:
              f"(images {err}, {inner} mask pixels off a region edge)")
 
 
-def _family_reading(card: str, path: str, model, x, step_ms: float, families: dict):
+def _family_reading(card: str, path: str, model, x, step_ms: float, families: dict, **kw):
     """A reading that gates nothing: each module family's device time in a
     train step at the step's shapes, replayed from inputs captured in one
-    train-mode forward: forward and backward where the step runs one (a
-    trainable parameter or an input that carries a gradient), forward only
-    elsewhere (the frozen encoder's BatchNorms)."""
+    train-mode forward, model(x, **kw): forward and backward where the
+    step runs one (a trainable parameter or an input that carries a
+    gradient), forward only elsewhere (the frozen encoder's BatchNorms)."""
     captured = []
     hooks = [m.register_forward_pre_hook(
         lambda m, args: captured.append((m, args[0].detach(), args[0].requires_grad)))
         for m in model.modules() if isinstance(m, tuple(families.values()))]
-    model(x)
+    model(x, **kw)
     for h in hooks:
         h.remove()
     for label, kind in families.items():
@@ -3070,47 +3097,516 @@ def _zoo_serve(card: str) -> None:
             httpd.server_close()
 
 
-def run_zoo_path(card: str) -> None:
-    """The rest of the CNN zoo at full width: for each of VGG16, VGG19,
-    AttentionUNet, R2Unet and R2AttUnet, train_model bf16 at 256px with a
-    resume and its best .pt (gates 1-3), the steady step's readings with
-    gate 6 (AttentionUNet's also at B=ZOO_BIG_SEG_BATCH, the JAX bench's
-    shape), and gates 4 and 5 at ZOO_PARITY_SIZE px; then the five .pt
-    through test_all_models into the CSVs and the VGG16 + AttentionUNet
-    server.  The zoo's kernel forms are checked with the other kernel
-    checks, before the paths (_zoo_kernel_checks): late in a run the
-    profiler once recorded 70 of 100 launches of B2 at B=1."""
+def _zoo_models(card: str, names, root: str) -> None:
+    """For each of `names`: train_model bf16 at 256px with a resume and its
+    best .pt written into `root` (gates 1-3), the steady step's readings
+    with gate 6 (AttentionUNet's also at B=ZOO_BIG_SEG_BATCH, the JAX
+    bench's shape), and gates 4 and 5 at ZOO_PARITY_SIZE px, whose CPU
+    half goes to the worker.  Fails at the end on a step that
+    synchronized."""
     faults = {}
-    (HERE / "build").mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=HERE / "build") as root:
-        for name in ZOO_CLS + ZOO_SEG:
-            t0 = time.perf_counter()
-            model, train_loader = _zoo_train(card, name, root)
-            state = {k: v.cpu() for k, v in model.state_dict().items()}
-            t1 = time.perf_counter()
-            _zoo_parity(card, name, state)  # the CPU half runs in the worker
-            t2 = time.perf_counter()
-            fault = _zoo_readings(card, name, model, train_loader, sync_gate=True)
-            if fault is not None:
-                faults[name] = fault
-            if name == "AttentionUNet":
-                big, _ = _zoo_data(name, steps=2, val=1, batch=ZOO_BIG_SEG_BATCH)
-                _zoo_readings(card, name, model, big, sync_gate=False)
-            del model, train_loader, state
-            torch.cuda.empty_cache()
-            print(f"[{card}] zoo path, {name}: {time.perf_counter() - t0:.1f} s in all, "
-                  f"gates 4 and 5 {t2 - t1:.1f} s of it (the card's half; the CPU's in "
-                  f"the worker)")
+    for name in names:
         t0 = time.perf_counter()
-        _zoo_eval(card, root)
+        model, train_loader = _zoo_train(card, name, root)
+        state = {k: v.cpu() for k, v in model.state_dict().items()}
+        t1 = time.perf_counter()
+        _zoo_parity(card, name, state)  # the CPU half runs in the worker
+        t2 = time.perf_counter()
+        fault = _zoo_readings(card, name, model, train_loader, sync_gate=True)
+        if fault is not None:
+            faults[name] = fault
+        if name == "AttentionUNet":
+            big, _ = _zoo_data(name, steps=2, val=1, batch=ZOO_BIG_SEG_BATCH)
+            _zoo_readings(card, name, model, big, sync_gate=False)
+        del model, train_loader, state
+        torch.cuda.empty_cache()
+        print(f"[{card}] zoo path, {name}: {time.perf_counter() - t0:.1f} s in all, "
+              f"gates 4 and 5 {t2 - t1:.1f} s of it (the card's half; the CPU's in "
+              f"the worker)")
+    if faults:
+        fail("zoo path: a train step synchronized with the host:\n"
+             + "\n".join(f"{n}: {f}" for n, f in faults.items()))
+
+
+def run_zoo_models_path(card: str, root: str) -> None:
+    """The zoo's five models (_zoo_models), their .pt into `root` for the
+    zoo path's eval.  They run before the clip path: their gate-4 CPU
+    halves, the worker's largest, then overlap the clip, finetune and dp
+    paths' card work instead of holding the card idle at the end of the
+    run."""
+    _zoo_models(card, ZOO_CLS + ZOO_SEG, root)
+
+
+def run_zoo_path(card: str, root: str) -> None:
+    """The end of the CNN zoo: the five .pt in `root` (run_zoo_models_path)
+    through test_all_models into the CSVs and the VGG16 + AttentionUNet
+    server; then the worker's gate-4 halves are drained.  The zoo's
+    kernel forms are checked with the other kernel checks, before the
+    paths (_zoo_kernel_checks): late in a run the profiler once recorded
+    70 of 100 launches of B2 at B=1."""
+    t0 = time.perf_counter()
+    _zoo_eval(card, root)
     t1 = time.perf_counter()
     _zoo_serve(card)
     print(f"[{card}] zoo path: eval {t1 - t0:.1f} s, serve {time.perf_counter() - t1:.1f} s")
     if _WORKER is not None:
         _WORKER.drain(card)
-    if faults:
-        fail("zoo path: a train step synchronized with the host:\n"
-             + "\n".join(f"{n}: {f}" for n, f in faults.items()))
+
+
+TWIN_SEG_BATCH = 8   # twins path: ResNetUnet's and AttentionUNet's readings (the recipe's)
+TWIN_PARITY = {"float64": 2, "float32": 8}  # T2's batches at ZOO_PARITY_SIZE
+TWIN_PERMS = 2       # ... the default float32 run also on this many row permutations
+TWIN_READ_REPS = 2   # readings: steps or forwards a profiler session
+TWIN_SESSIONS = 2    # ... sessions a reading (their median)
+# T2: (label, model, the twin's flags, the float32 factor: 7 for R2, as the zoo's gate 4)
+TWIN_PAIRS = (
+    ("ResNet18 stem_s2d", "ResNet18", dict(stem_s2d=True), 2.0),
+    ("ResNetUnet up_as_dot", "ResNetUnet", dict(up_as_dot=True), 2.0),
+    ("AttentionUNet s2d_up + fused_gates", "AttentionUNet",
+     dict(s2d_up=True, fused_gates=True), 2.0),
+    ("R2AttUnet use_scan + s2d_up + fused_gates", "R2AttUnet",
+     dict(use_scan=True, s2d_up=True, fused_gates=True), 7.0),
+)
+# readings: (label, model, flags); ResNet18 at B=BATCH, the U-Nets at TWIN_SEG_BATCH
+TWIN_READINGS = (
+    ("ResNet18", "ResNet18", {}), ("ResNet18 stem_s2d", "ResNet18", dict(stem_s2d=True)),
+    ("ResNetUnet", "ResNetUnet", {}), ("ResNetUnet up_as_dot", "ResNetUnet", dict(up_as_dot=True)),
+    ("AttentionUNet", "AttentionUNet", {}),
+    ("AttentionUNet s2d_up", "AttentionUNet", dict(s2d_up=True)),
+    ("AttentionUNet fused_gates", "AttentionUNet", dict(fused_gates=True)),
+    ("AttentionUNet s2d_up + fused_gates", "AttentionUNet", dict(s2d_up=True, fused_gates=True)),
+)
+
+
+def _twins_augment_gate(card: str, images: torch.Tensor) -> None:
+    """T1: augment_batch(s2d=True), C=3 bf16 at B=BATCH, launches exactly one
+    B1, in its planar form, and nothing else of the port's, and equals
+    space_to_depth(augment_batch(s2d=False)) from the same generator state
+    bit for bit; preprocess_eval_batch(s2d=True) launches exactly one B2 and
+    equals the shuffle of the plain call bit for bit.  2 B1 and 2 B2."""
+    from medseg_tpu_torch.ops import augment as A
+    from medseg_tpu_torch.ops.image import space_to_depth
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    state = gen.get_state()
+    forms, warp = [], A.warp_affine_kernel
+
+    def recording(*args, **kw):
+        forms.append(kw.get("planar", False))
+        return warp(*args, **kw)
+
+    torch.cuda.synchronize()
+    before = {n: fn.launches for n, fn in kernel_counts().items()}
+    A.warp_affine_kernel = recording
+    try:
+        x, m = A.augment_batch(gen, images, out_dtype=torch.bfloat16, s2d=True)
+        torch.cuda.synchronize()
+    finally:
+        A.warp_affine_kernel = warp
+    got = {n: fn.launches - before[n] for n, fn in kernel_counts().items()}
+    if got != {"warp_affine": 1, "fused_photometric": 0, "stem_conv_pool": 0} or forms != [True]:
+        fail(f"twins path, T1: augment_batch(s2d=True) launched {got}, planar {forms} "
+             f"(expected one B1 in its planar form and nothing else)")
+    gen.set_state(state)
+    plain, _ = A.augment_batch(gen, images, out_dtype=torch.bfloat16)
+    b, h, w, _ = images.shape
+    if (m is not None or x.dtype != torch.bfloat16 or x.shape != (b, h // 2, w // 2, 12)
+            or not torch.equal(x, space_to_depth(plain))):
+        fail(f"twins path, T1: augment_batch(s2d=True) {x.dtype} {tuple(x.shape)} is not "
+             f"the shuffle of augment_batch(s2d=False) bit for bit")
+    print(f"[{card}] twins path, T1: augment_batch(s2d=True) bf16 B={b} at {h}px launched "
+          f"one B1 (planar) and nothing else; its [{b},{h // 2},{w // 2},12] output equals "
+          f"space_to_depth(augment_batch(s2d=False)) from the same generator state bit for "
+          f"bit")
+    b2 = kernel_counts()["fused_photometric"]
+    before = b2.launches
+    e, _ = A.preprocess_eval_batch(images, s2d=True)
+    torch.cuda.synchronize()
+    n = b2.launches - before
+    plain_e, _ = A.preprocess_eval_batch(images)
+    if n != 1 or not torch.equal(e, space_to_depth(plain_e)):
+        fail(f"twins path, T1: preprocess_eval_batch(s2d=True) launched {n} B2 (expected 1) "
+             f"or is not the shuffle of the plain call bit for bit")
+    print(f"[{card}] twins path, T1: preprocess_eval_batch(s2d=True) float32 B={b} launched "
+          f"one B2; equal to the shuffle of the plain call bit for bit")
+
+
+def _twin_state(name: str, seed: int) -> dict:
+    """A model's state dict drawn on the card: init_weights from `seed`,
+    running statistics away from 0 and 1."""
+    from medseg_tpu_torch.core.registry import get_model
+    from medseg_tpu_torch.models.resnet import init_weights
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = init_weights(get_model(name)["factory"](device="cuda"), gen)
+    randomize_bn_stats(model, gen)
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def _twin_loss(seg: bool, out: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """BCE with logits, or CE with 0.1 label smoothing (3 classes), written
+    out so that it computes in the output's dtype, float64 too."""
+    if seg:
+        t = y.to(out.dtype)
+        return -(t * F.logsigmoid(out) + (1.0 - t) * F.logsigmoid(-out)).mean()
+    target = (y[:, None] == torch.arange(3, device=y.device)).to(out.dtype) * 0.9 + 0.1 / 3
+    return -(target * torch.log_softmax(out, -1)).sum(-1).mean()
+
+
+def _twin_run(name: str, flags: dict, state: dict, dtype, x, y, perm=None,
+              device: str = "cuda") -> dict:
+    """One train-mode forward and backward of `name` (with `flags`) from
+    `state` in `dtype` on `device` (dropout off): the output, every
+    parameter's gradient and the running statistics after it, on the
+    card.  perm: the rows in that order (the output is put back in the
+    batch's)."""
+    from medseg_tpu_torch.core.registry import get_model
+
+    model = get_model(name)["factory"](dtype=dtype, device=device, **flags)
+    model.load_state_dict(state, strict=True)
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    if dtype == torch.float64:
+        model.double()
+    if perm is not None:
+        x, y = x[perm], y[perm]
+    out = model.train()(x.to(device, dtype))
+    params = dict(model.named_parameters())
+    grads = torch.autograd.grad(_twin_loss(name != "ResNet18", out, y.to(device)),
+                                list(params.values()))
+    if perm is not None:
+        out = out[torch.argsort(perm).to(device)]
+    card = lambda t: t.detach().to("cuda", torch.float64)  # noqa: E731
+    return {"output": {"out": card(out)},
+            "gradients": {n: card(g) for n, g in zip(params, grads)},
+            "running statistics": {k: card(v) for k, v in model.state_dict().items()
+                                   if k.endswith(("running_mean", "running_var"))}}
+
+
+def _twin_cpu_orders(name: str, state: dict, x, y) -> list:
+    """The default's float32 run on the CPU at YARDSTICK_THREADS' fractions
+    of this process's threads and at its own count: other summation orders
+    of every operation (gate 4's yardstick, _compare_runs)."""
+    threads = torch.get_num_threads()
+    cpu_state = {k: v.cpu() for k, v in state.items()}
+    runs = []
+    try:
+        for t in sorted({threads} | {max(1, threads // d) for d in YARDSTICK_THREADS},
+                        reverse=True):
+            torch.set_num_threads(t)
+            runs.append((f"CPU at {t} threads", _twin_run(
+                name, {}, cpu_state, torch.float32, x.cpu(), y.cpu(), device="cpu")))
+    finally:
+        torch.set_num_threads(threads)
+    return runs
+
+
+def _twin_dist(a: dict, b: dict) -> tuple:
+    """(max |a - b|, L2 of a - b, max |b|) over one part's tensors."""
+    diff = [a[k] - b[k] for k in b]
+    return (max(float(d.abs().max()) for d in diff),
+            math.sqrt(sum(float(d.square().sum()) for d in diff)),
+            max(float(t.abs().max()) for t in b.values()))
+
+
+def _twin_compare(t32: dict, ref: dict, yard: list, factor: float) -> dict:
+    """part -> (pass, the line): the float32 twin's distance from float64
+    (max and L2) against `factor` times the largest of the default float32
+    runs' in `yard` [(order, run)]."""
+    out = {}
+    for part in ref:
+        mine = _twin_dist(t32[part], ref[part])
+        dists = [(order, _twin_dist(run[part], ref[part])) for order, run in yard]
+        top = (max(d[0] for _, d in dists), max(d[1] for _, d in dists))
+        ok = mine[0] <= factor * top[0] and mine[1] <= factor * top[1]
+        out[part] = (ok, f"twin vs the default's float64 max {mine[0]:.3e} L2 {mine[1]:.3e}; "
+                         f"the default float32's (max, L2) over {len(dists)} orders "
+                         f"{[(o, f'{d[0]:.3e}', f'{d[1]:.3e}') for o, d in dists]}; tol "
+                         f"{factor:g}x their largest: {'pass' if ok else 'FAIL'}")
+    return out
+
+
+def _twin_batch(name: str, images32: dict):
+    """T2's batch at ZOO_PARITY_SIZE through augment_batch on the card
+    (float32; a segmenter's with its masks): (x for the default, x for
+    the twin, targets).  ResNet18's twin input is augment_batch(s2d=True)
+    from the same generator state.  1 B1, 2 for ResNet18."""
+    from medseg_tpu_torch.ops.augment import augment_batch
+
+    imgs, targets = images32["seg" if name != "ResNet18" else "cls"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    if name != "ResNet18":
+        x, m = augment_batch(gen, imgs, targets)
+        return x, x, m
+    state = gen.get_state()
+    x, _ = augment_batch(gen, imgs)
+    gen.set_state(state)
+    xs, _ = augment_batch(gen, imgs, s2d=True)
+    return x, xs, targets
+
+
+def _twins_parity(card: str) -> int:
+    """T2: each twin against its default lowering on the same weights and
+    batch at ZOO_PARITY_SIZE, full width.  In float64 at B=2 the
+    train-mode output, the gradients of its loss and the running
+    statistics after it within 1e-9 of each part's largest magnitude (the
+    same function: float64 leaves only reassociation).  In float32 at B=8
+    (TF32 off) the twin's distance from the default's float64 run at most
+    `factor` times the default float32 run's own distance from it (max and
+    L2), the largest over the batch's order and TWIN_PERMS row
+    permutations (other orders of the BatchNorms' sums) on the card, and
+    when the twin fails against those, over the CPU's float32 runs at
+    gate 4's thread counts too (_twin_cpu_orders): a float32 run's
+    gradients may land on either side of a ReLU whose float64 input lies
+    within float32 noise of 0 (ResNet18 at this batch has one at 2.9e-8
+    of its layer's scale), and which side depends on the order of the
+    sums.  Returns B1's launches."""
+    from medseg_tpu_torch.data.synthetic import synthetic_cls, synthetic_seg
+
+    b = TWIN_PARITY["float32"]
+    cls = synthetic_cls(n=b, img_size=ZOO_PARITY_SIZE, seed=SEED + 22)
+    seg = synthetic_seg(n=b, img_size=ZOO_PARITY_SIZE, seed=SEED + 23)
+    images32 = {"cls": (torch.from_numpy(cls.images).cuda(),
+                        torch.from_numpy(cls.labels).long().cuda()),
+                "seg": (torch.from_numpy(seg.images).cuda(), torch.from_numpy(seg.masks).cuda())}
+    b64 = TWIN_PARITY["float64"]
+    perms = [torch.randperm(b, generator=torch.Generator().manual_seed(SEED + p)).cuda()
+             for p in range(TWIN_PERMS)]
+    launches, failed = 0, []
+    for label, name, flags, factor in TWIN_PAIRS:
+        state = _twin_state(name, SEED + 24)
+        x, xt, y = _twin_batch(name, images32)
+        launches += 2 if name == "ResNet18" else 1
+        d64 = _twin_run(name, {}, state, torch.float64, x[:b64], y[:b64])
+        t64 = _twin_run(name, flags, state, torch.float64, xt[:b64], y[:b64])
+        ref = _twin_run(name, {}, state, torch.float64, x, y)
+        t32 = _twin_run(name, flags, state, torch.float32, xt, y)
+        yard = [(f"card, row order {i}", _twin_run(name, {}, state, torch.float32, x, y, p))
+                for i, p in enumerate([None, *perms])]
+        verdicts = _twin_compare(t32, ref, yard, factor)
+        if not all(ok for ok, _ in verdicts.values()):
+            yard += _twin_cpu_orders(name, state, x, y)
+            print(f"[{card}] twins path, T2 {label}: the float32 twin fails against the "
+                  f"card's orders alone; the yardstick now takes {len(yard)} orders, the "
+                  f"CPU's too (gate 4's rule)")
+            verdicts = _twin_compare(t32, ref, yard, factor)
+        for part in ref:
+            err, _, scale = _twin_dist(t64[part], d64[part])
+            ok64 = err <= 1e-9 * scale
+            ok32, line = verdicts[part]
+            print(f"[{card}] twins path, T2 {label}, {part} at {ZOO_PARITY_SIZE}px: float64 "
+                  f"B={b64} twin vs default max_abs_err={err:.3e} tol {1e-9 * scale:.3e} (1e-9 "
+                  f"of {scale:.3e}): {'pass' if ok64 else 'FAIL'}; float32 B={b} {line}")
+            failed += [f"{label} {part} float64"] * (not ok64)
+            failed += [f"{label} {part} float32"] * (not ok32)
+    if failed:
+        fail(f"twins path, T2 failed: {failed}")
+    return launches
+
+
+def _twin_device(fn, reps: int = TWIN_READ_REPS) -> tuple:
+    """(device ms, device operations, batch-norm kernels' ms) per call of
+    fn(): the median over TWIN_SESSIONS profiler sessions (_sessions)."""
+    rows = []
+    for events in _sessions(fn, reps, TWIN_SESSIONS):
+        bn = [e for e in events if "batch_norm" in e.key or e.key.startswith("bn_")]
+        rows.append((sum(e.device_time_total for e in events) / reps / 1e3,
+                     sum(e.count for e in events) / reps,
+                     sum(e.device_time_total for e in bn) / reps / 1e3))
+    return tuple(float(np.median(col)) for col in zip(*rows))
+
+
+def _twins_readings(card: str, images: torch.Tensor) -> int:
+    """Readings that gate nothing: for each of TWIN_READINGS, the device
+    time, device operations and batch-norm kernels' share of a bf16 train
+    step (augment_batch -> forward -> loss -> backward -> clip + AdamW, the
+    recipe's trainable set) and of a bf16 eval forward with its
+    augmentation, random weights; then the BatchNorm modules' share of
+    the step replayed in _family_reading's manner (for a default and the
+    fused gates: the other twins keep the default's BatchNorm modules at
+    the default's shapes).  Returns B1's launches."""
+    from medseg_tpu_torch.core.registry import get_model
+    from medseg_tpu_torch.data.synthetic import synthetic_seg
+    from medseg_tpu_torch.models.resnet import init_weights
+    from medseg_tpu_torch.nn.blocks import BatchNorm2d
+    from medseg_tpu_torch.ops.augment import augment_batch
+    from medseg_tpu_torch.train import steps as S
+    from medseg_tpu_torch.train.freeze import finetune_filter, set_trainable
+
+    seg = synthetic_seg(n=TWIN_SEG_BATCH, img_size=SIZE, seed=SEED + 25)
+    seg_data = (torch.from_numpy(seg.images).cuda(), torch.from_numpy(seg.masks).cuda())
+    labels = torch.arange(images.shape[0], device="cuda") % 3
+    launches = 0
+    for label, name, flags in TWIN_READINGS:
+        cls = name == "ResNet18"
+        model = get_model(name)["factory"](dtype=torch.bfloat16, device="cuda", **flags)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 26)
+        init_weights(model, gen)
+        opt = S.build_optimizer(1e-6, 5e-4, 1.0, set_trainable(model.train(),
+                                                               finetune_filter(name)))
+        s2d = flags.get("stem_s2d", False)
+        if cls:
+            imgs, targets = images, labels
+
+            def prep(g, im, t, s2d=s2d):
+                return augment_batch(g, im, out_dtype=torch.bfloat16, s2d=s2d)[0], t
+
+            def step(model=model, opt=opt, gen=gen, prep=prep):
+                return S.cls_train_step(model, opt, imgs, targets, gen, 0.1, prep)[0]
+        else:
+            imgs, targets = seg_data
+
+            def prep(g, im, t):
+                return augment_batch(g, im, t, out_dtype=torch.bfloat16)
+
+            def step(model=model, opt=opt, gen=gen, prep=prep):
+                return S.seg_train_step(model, opt, imgs, targets, gen, prep)
+
+        def forward(model=model, gen=gen, prep=prep):
+            with torch.inference_mode():
+                return model(prep(gen, imgs, targets)[0])
+
+        b = imgs.shape[0]
+        step_ms, step_ops, step_bn = _twin_device(step)
+        xb = prep(gen, imgs, targets)[0]
+        kw = {"generator": gen} if cls else {}
+        if flags.get("fused_gates") or not flags:
+            _family_reading(card, f"twins path, {label} bf16 step B={b}", model, xb,
+                            step_ms, {"BatchNorm2d": BatchNorm2d}, **kw)
+        else:  # the default's BatchNorm modules at the default's shapes: its reading
+            print(f"[{card}] twins path, {label} bf16 step B={b}: its BatchNorm2d modules "
+                  f"and their shapes are {name}'s, read above")
+        model.eval()
+        fwd_ms, fwd_ops, fwd_bn = _twin_device(forward)
+        model.train()
+        # 2 warm-up calls + TWIN_READ_REPS calls a session, and one prep above
+        launches += 2 * TWIN_SESSIONS * (2 + TWIN_READ_REPS) + 1
+        print(f"[{card}] twins path, {label} bf16 B={b} at {SIZE}px (random weights): train "
+              f"step {step_ms:.4f} ms of device time, {step_ops:.0f} device operations, "
+              f"batch-norm kernels {step_bn:.4f} ms ({step_bn / step_ms:.1%}); eval forward "
+              f"with its augmentation {fwd_ms:.4f} ms, {fwd_ops:.0f} operations, batch-norm "
+              f"kernels {fwd_bn:.4f} ms ({fwd_bn / fwd_ms:.1%}) (median of {TWIN_SESSIONS} "
+              f"sessions of {TWIN_READ_REPS} calls)")
+    return launches
+
+
+def _stem_composite_reading(card: str, x: torch.Tensor, x_s2d: torch.Tensor) -> None:
+    """A reading: ResNet18's stem in eval mode (conv1 + bn1 + ReLU + 3x3/s2
+    max pool) at B=BATCH bf16, as FoldedStem on the s2d input and as the
+    standard 7x7/s2 conv on NHWC, device time of all their kernels, beside
+    B3 (the kernels line: the same work in one kernel) and the two
+    outputs' distance."""
+    from medseg_tpu_torch.models.resnet import resnet18
+
+    torch.manual_seed(SEED + 27)
+    default = resnet18(dtype=torch.bfloat16).eval()
+    randomize_bn_stats(default, torch.Generator(device="cuda").manual_seed(SEED + 27))
+    twin = resnet18(dtype=torch.bfloat16, stem_s2d=True).eval()
+    twin.load_state_dict(default.state_dict(), strict=True)
+
+    def stem(model, inp):
+        return F.max_pool2d(F.relu(model.bn1(model.conv1(inp.permute(0, 3, 1, 2)))), 3, 2, 1)
+
+    with torch.inference_mode():
+        err = (stem(twin, x_s2d).float() - stem(default, x).float()).abs().max().item()
+        folded = device_ms(lambda: stem(twin, x_s2d), 10)
+        standard = device_ms(lambda: stem(default, x), 10)
+    print(f"[{card}] twins path, ResNet18 stem conv1 + bn1 + ReLU + max pool, eval, bf16 "
+          f"B={x.shape[0]} at {x.shape[1]}px: FoldedStem (4x4 conv over 12 channels) "
+          f"{folded:.4f} ms, the standard 7x7/s2 conv {standard:.4f} ms of device time "
+          f"(every kernel; B3, the same work in one kernel, is in the kernels line); "
+          f"outputs max_abs_err {err:.4f} (bf16 rounding of two lowerings)")
+
+
+def _twins_debug_gate(card: str, images: torch.Tensor) -> int:
+    """T3: a clean ResNet18 float32 B=8 train step (augmentation, forward,
+    backward, clip + AdamW) passes inside nan_check_mode; a NaN in the
+    backward only raises there too; a forward with one weight set to NaN
+    raises FloatingPointError naming an ATen operation; assert_finite
+    flags exactly the poisoned state_dict key.  Returns B1's launches."""
+    from medseg_tpu_torch.models.resnet import init_weights, resnet18
+    from medseg_tpu_torch.ops.augment import augment_batch
+    from medseg_tpu_torch.train import steps as S
+    from medseg_tpu_torch.utils import assert_finite, nan_check_mode
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 28)
+    model = init_weights(resnet18(), gen).train()
+    opt = S.build_optimizer(1e-6, 5e-4, 1.0, list(model.parameters()))
+    imgs, labels = images[:8], torch.arange(8, device="cuda") % 3
+
+    def prep(g, im, t):
+        return augment_batch(g, im)[0], t
+
+    S.cls_train_step(model, opt, imgs, labels, gen, 0.1, prep)  # warm-up
+    with nan_check_mode():
+        loss = S.cls_train_step(model, opt, imgs, labels, gen, 0.1, prep)[0]
+        if not math.isfinite(loss.item()):
+            fail("twins path, T3: the clean step's loss is not finite")
+        x = torch.tensor([0.0, 1.0], device="cuda", requires_grad=True)
+        y = (x - x).pow(0.5).sum()
+    try:
+        with nan_check_mode():
+            y.backward()
+        fail("twins path, T3: a NaN made in the backward on the card did not raise")
+    except FloatingPointError as e:
+        backward_op = str(e)
+    with torch.no_grad():
+        model.layer2[0].conv1.weight[0, 0, 0, 0] = float("nan")
+    model.eval()
+    try:
+        with torch.no_grad(), nan_check_mode():
+            model(prep(gen, imgs, labels)[0])
+        fail("twins path, T3: a forward with a NaN weight did not raise")
+    except FloatingPointError as e:
+        forward_op = str(e)
+    if "aten." not in forward_op or "aten." not in backward_op:
+        fail(f"twins path, T3: the errors name no operation: {forward_op!r}, {backward_op!r}")
+    try:
+        assert_finite(model.state_dict(), "state_dict")
+        fail("twins path, T3: assert_finite passed a NaN weight")
+    except FloatingPointError as e:
+        flagged = str(e)
+    if flagged != "non-finite values in state_dict: [\"['layer2.0.conv1.weight']\"]":
+        fail(f"twins path, T3: assert_finite said {flagged!r}")
+    print(f"[{card}] twins path, T3: a clean ResNet18 float32 B=8 train step passed inside "
+          f"nan_check_mode; a NaN weight's forward raised {forward_op!r}; a NaN made in the "
+          f"backward raised {backward_op!r}; assert_finite: {flagged!r}")
+    return 3
+
+
+def run_twins_path(card: str) -> dict:
+    """The opt-in lowering twins at full width with random weights from
+    SEED: T1 (augment_batch and preprocess_eval_batch with s2d), T2 (each
+    twin against its default lowering, float64 and float32), T3
+    (nan_check_mode and assert_finite), then the readings (default
+    against twin: bf16 train steps and forwards, FoldedStem's stem against
+    the standard one).  Returns the launches of its kernels."""
+    from medseg_tpu_torch.data.synthetic import synthetic_cls
+    from medseg_tpu_torch.ops.augment import augment_batch
+
+    reset_counts()
+    images = torch.from_numpy(synthetic_cls(n=BATCH, img_size=SIZE, seed=SEED + 20)
+                              .images).cuda()
+    t = [time.perf_counter()]
+    _twins_augment_gate(card, images)
+    t.append(time.perf_counter())
+    b1 = 2 + _twins_parity(card)
+    t.append(time.perf_counter())
+    b1 += _twins_debug_gate(card, images)
+    t.append(time.perf_counter())
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    state = gen.get_state()
+    x, _ = augment_batch(gen, images, out_dtype=torch.bfloat16)
+    gen.set_state(state)
+    x_s2d, _ = augment_batch(gen, images, out_dtype=torch.bfloat16, s2d=True)
+    _stem_composite_reading(card, x, x_s2d)
+    b1 += 2 + _twins_readings(card, images)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    print(f"[{card}] twins path: T1 {t[1] - t[0]:.1f} s, T2 {t[2] - t[1]:.1f} s, T3 "
+          f"{t[3] - t[2]:.1f} s, the readings {t[4] - t[3]:.1f} s")
+    return read_counts("twins path", {"warp_affine": b1, "fused_photometric": 2})
 
 
 CLIP_EVAL_SAMPLES = 64  # clip path: a synthetic 256px split, 4 batches of 16
@@ -5217,6 +5713,24 @@ def _ingest_tree(root: Path) -> dict:
     return ids
 
 
+def _ingest_eda(card: str, root: Path) -> None:
+    """apps.eda.get_dataset_stats over the tree: INGEST_PER_CLASS images and
+    INGEST_PER_CLASS - INGEST_UNMASKED masks a class, the first 10 paths
+    of each sorted."""
+    from medseg_tpu_torch.apps import eda
+
+    stats = eda.get_dataset_stats(str(root))
+    masks = INGEST_PER_CLASS - INGEST_UNMASKED
+    for cls, st in stats.items():
+        paths = sorted(str(p) for p in (root / cls / "images").glob("*.png"))[:10]
+        if (st["images"], st["masks"]) != (INGEST_PER_CLASS, masks) or st["image_paths"] != paths:
+            fail(f"ingest path: eda.get_dataset_stats counted {cls} {st['images']} images and "
+                 f"{st['masks']} masks (expected {INGEST_PER_CLASS} and {masks}) or listed "
+                 f"other paths")
+    print(f"[{card}] ingest path: eda.get_dataset_stats counted "
+          f"{ {c: (st['images'], st['masks']) for c, st in stats.items()} } (images, masks)")
+
+
 def _ingest_splits(card: str, root: Path, ids: dict) -> dict:
     """The split CSVs partition the tree 80/10/10, stratified: returns
     {split: [(id, class), ...]} in file order."""
@@ -5532,6 +6046,7 @@ def run_ingest_path(card: str) -> dict:
         ids = _ingest_tree(root)
         print(f"[{card}] ingest path: wrote {len(ids)} PNGs at 299x299 and their masks in "
               f"{time.perf_counter() - t0:.1f} s")
+        _ingest_eda(card, root)
         _cli(card, ["split", "--root", str(root)], {}, "ingest path")
         rows = _ingest_splits(card, root, ids)
         _cli(card, ["pack", "--root", str(root), "--cache-dir", str(packed)], {},
@@ -5625,19 +6140,26 @@ def _drive(card: str, name: str) -> int:
                 "stem_conv_pool": run_stem_path(card)["stem_conv_pool"]}
     print(f"[{card}] kernel checks and the aug+infer, eval and stem paths: "
           f"{time.perf_counter() - t0:.1f} s")
+    (HERE / "build").mkdir(exist_ok=True)
+    zoo_root = tempfile.TemporaryDirectory(dir=HERE / "build")  # the zoo's .pt files
     paths = {"ingest": run_ingest_path, "train": run_train_path, "seg": run_seg_path,
-             "scan": run_scan_path, "serve": run_serve_path, "clip": run_clip_path,
-             "finetune": run_finetune_path, "dp": run_dp_path, "zoo": run_zoo_path}
+             "scan": run_scan_path, "serve": run_serve_path, "twins": run_twins_path,
+             "zoo models": lambda c: run_zoo_models_path(c, zoo_root.name),
+             "clip": run_clip_path, "finetune": run_finetune_path, "dp": run_dp_path,
+             "zoo": lambda c: run_zoo_path(c, zoo_root.name)}
     returned = {}
-    for path, run in paths.items():
-        t0 = time.perf_counter()
-        returned[path] = run(card)
-        print(f"[{card}] {path} path: {time.perf_counter() - t0:.1f} s")
+    try:
+        for path, run in paths.items():
+            t0 = time.perf_counter()
+            returned[path] = run(card)
+            print(f"[{card}] {path} path: {time.perf_counter() - t0:.1f} s")
+    finally:
+        zoo_root.cleanup()
     # B2's count: the eval path's launches and the clip path's servers'; and
     # both kernels' launches on the ingest, finetune and dp paths' commands
-    # (the dp path's two ranks' too)
+    # (the dp path's two ranks' too) and on the twins path
     launches["fused_photometric"] += returned["clip"]
-    for path in ("ingest", "finetune", "dp"):
+    for path in ("ingest", "finetune", "dp", "twins"):
         for kernel, n in returned[path].items():
             launches[kernel] += n
 

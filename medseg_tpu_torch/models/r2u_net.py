@@ -15,8 +15,11 @@ Inputs are NHWC [B,H,W,3] with H and W multiples of 16; the output is
 float32 [B,H,W,1] (float64 for a float64 model); the last 1x1 computes in
 dtype promoted with float32, as flax's Conv without a dtype does.  In
 training each RecurrentBlock's one BatchNorm blends its running
-statistics t+1 times a forward, in order.  The JAX package's opt-in
-`use_scan`, `s2d_up` and `fused_gates` lowerings wait for ROADMAP A.16.
+statistics t+1 times a forward, in order.  The opt-in lowerings of the
+JAX package, each the same function with the same weights and keys:
+s2d_up (decoder UpConvs as UpConvS2D, nn/s2d.py), fused_gates
+(R2AttUnet's gates with fused_stats) and use_scan (accepted; the
+weight-tied loop is the same, nn/blocks.py RecurrentBlock).
 """
 
 from __future__ import annotations
@@ -29,26 +32,30 @@ from medseg_tpu_torch.core.device import DeviceLike, resolve_device
 from medseg_tpu_torch.core.registry import register_model
 from medseg_tpu_torch.models.resnet import _nchw, _nhwc
 from medseg_tpu_torch.nn.blocks import AttentionGate, Conv2d, RRCNNBlock, UpConv
+from medseg_tpu_torch.nn.s2d import UpConvS2D
 
 WIDTHS = (64, 128, 256, 512, 1024)
 
 
 class R2UNet(nn.Module):
     def __init__(self, out_channels: int = 1, t: int = 5, attention: bool = False,
-                 dtype=torch.float32):
+                 dtype=torch.float32, use_scan: bool = False, s2d_up: bool = False,
+                 fused_gates: bool = False):
         super().__init__()
         self.attention = attention
         w = WIDTHS
+        up = UpConvS2D if s2d_up else UpConv
         for i in range(5):
             self.add_module(f"RRCNN{i + 1}",
-                            RRCNNBlock(3 if i == 0 else w[i - 1], w[i], t, dtype))
+                            RRCNNBlock(3 if i == 0 else w[i - 1], w[i], t, dtype, use_scan))
         for idx in range(5, 1, -1):
             deep, skip = w[idx - 1], w[idx - 2]
-            self.add_module(f"up{idx}", UpConv(deep, skip, dtype))
+            self.add_module(f"up{idx}", up(deep, skip, dtype))
             if attention:
                 self.add_module(f"att{idx}",
-                                AttentionGate(skip, skip, skip // 2, dtype))
-            self.add_module(f"up_RRCNN{idx}", RRCNNBlock(2 * skip, skip, t, dtype))
+                                AttentionGate(skip, skip, skip // 2, dtype, fused_gates))
+            self.add_module(f"up_RRCNN{idx}",
+                            RRCNNBlock(2 * skip, skip, t, dtype, use_scan))
         self.conv_1x1 = Conv2d(w[0], out_channels, 1,
                                compute_dtype=torch.promote_types(dtype, torch.float32))
 

@@ -12,6 +12,12 @@ tensor is channels_last memory, which cuDNN takes without a copy.
 Parameters and BN statistics are float32; convs and BN compute in `dtype`;
 the pooled features and the head are float32.
 
+stem_s2d=True takes the stem's input in ops/image.py's space-to-depth
+layout [B,H/2,W/2,12] (what augment_batch(s2d=True) and
+preprocess_eval_batch(s2d=True) emit) and computes the same stem there
+(`FoldedStem`, medseg_tpu/models/resnet.py:29-53): a 4x4 stride-1 conv
+over 12 channels, refolded from the canonical conv1 weight.
+
 `apply_with_stem_kernel` (medseg_tpu/models/resnet.py:202
 `apply_with_pallas_stem`) is the inference forward through the fused stem
 kernel: bn1 folded into conv1, one kernel for conv + BN + ReLU + maxpool,
@@ -53,6 +59,29 @@ def _downsample(in_ch: int, out_ch: int, stride: int, dtype) -> nn.Sequential:
     return nn.Sequential(
         Conv2d(in_ch, out_ch, 1, stride, bias=False, compute_dtype=dtype),
         BatchNorm2d(out_ch, compute_dtype=dtype))
+
+
+class FoldedStem(Conv2d):
+    """The 7x7/s2 stem conv evaluated on space-to-depth input: NCHW views of
+    [B,H/2,W/2,12], channel c*4 + dy*2 + dx (ops/image.py space_to_depth).
+    The parameter is the canonical conv1 weight [64,3,7,7] (state dict
+    `conv1.weight`); each forward zero-pads it to 8x8 in front and
+    refolds it, in float32, into a 4x4 stride-1 conv over 12 channels,
+    cast to the compute dtype; the input is padded (2, 1) on each axis
+    first, as JAX's ((2,1),(2,1)), since a conv's own padding is
+    symmetric.  A cuDNN conv, as the JAX package's lax.conv."""
+
+    def __init__(self, compute_dtype=torch.float32):
+        super().__init__(3, 64, 7, 2, 3, bias=False, compute_dtype=compute_dtype)
+
+    def folded_weight(self) -> torch.Tensor:
+        w = F.pad(self.weight, (1, 0, 1, 0))  # [64, 3, 8, 8], taps 2a+d
+        w = w.reshape(64, 3, 4, 2, 4, 2).permute(0, 1, 3, 5, 2, 4)
+        return w.reshape(64, 12, 4, 4)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        return F.conv2d(F.pad(x.to(cd), (2, 1, 2, 1)), self.folded_weight().to(cd))
 
 
 class BasicBlock(nn.Module):
@@ -107,12 +136,15 @@ class ResNetEncoder(nn.Module):
 
     Module names are torchvision's (`conv1`, `bn1`, `layer1`-`layer4`), or
     with unet_names=True the reference ResNetUnet's (`encoder1.0`,
-    `encoder1.1` for the stem, `encoder2`-`encoder5` for the stages)."""
+    `encoder1.1` for the stem, `encoder2`-`encoder5` for the stages).
+    stem_s2d: the input is in the space-to-depth layout [B,H/2,W/2,12],
+    and conv1 is a FoldedStem."""
 
     def __init__(self, block: Type[nn.Module], stage_sizes: Sequence[int],
-                 dtype=torch.float32, unet_names: bool = False):
+                 dtype=torch.float32, unet_names: bool = False, stem_s2d: bool = False):
         super().__init__()
-        conv1 = Conv2d(3, 64, 7, 2, 3, bias=False, compute_dtype=dtype)
+        conv1 = (FoldedStem(dtype) if stem_s2d
+                 else Conv2d(3, 64, 7, 2, 3, bias=False, compute_dtype=dtype))
         bn1 = BatchNorm2d(64, compute_dtype=dtype)
         if unet_names:
             self.encoder1 = nn.Sequential(conv1, bn1)
@@ -165,8 +197,8 @@ class ResNetClassifier(ResNetEncoder):
 
     def __init__(self, block: Type[nn.Module], stage_sizes: Sequence[int],
                  num_classes: int = 3, dropout: float = 0.5,
-                 dtype=torch.float32):
-        super().__init__(block, stage_sizes, dtype)
+                 dtype=torch.float32, stem_s2d: bool = False):
+        super().__init__(block, stage_sizes, dtype, stem_s2d=stem_s2d)
         self.fc = ClassifierHead(self.out_channels, num_classes, dropout)
 
     def forward(self, x: torch.Tensor, skip_stem: bool = False,

@@ -10,10 +10,12 @@ module blocks run on NCHW views with channels_last memory, which cost no
 copy.
 
 The U-Net blocks (UpConv, AttentionGate, RecurrentBlock, RRCNNBlock) are
-the unfused default forms of medseg_tpu/nn/blocks.py:148-384, under the
-reference's module names; the JAX package's opt-in lowering twins
-(AttentionGate's fused_stats, RecurrentBlock's use_scan, nn/s2d.py) wait
-for ROADMAP A.16.
+the forms of medseg_tpu/nn/blocks.py:148-384, under the reference's module
+names, with their opt-in lowerings: AttentionGate's `fused_stats` (the
+W_g and W_x ConvBNs folded into one contraction each, their statistics
+from the inputs' channel mean and Gram matrix) and RecurrentBlock's
+`use_scan` (accepted; the loop is the same).  nn/s2d.py holds the
+space-to-depth twins of UpConv and DoubleConv.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from medseg_tpu_torch.parallel.sharding import current_group, global_rows, local_rows
+from medseg_tpu_torch.parallel.sharding import (all_reduce_sum, current_group, global_rows,
+                                                local_rows)
 
 
 class Conv2d(nn.Conv2d):
@@ -265,25 +268,92 @@ def _conv_bn_1x1(in_ch: int, features: int, dtype) -> nn.Sequential:
                          BatchNorm2d(features, compute_dtype=dtype))
 
 
+def _channel_stats(x: torch.Tensor):
+    """(mean [C], Gram matrix E[x x^T] [C,C]) of NHWC `x` over (B,H,W),
+    accumulated in float32 (float64 for a float64 input), as the JAX
+    package's einsum with preferred_element_type=float32: bf16 products
+    are exact in float32.  Under data parallelism, the global batch's: one
+    all-reduce of the sums and the count, whose backward sums too."""
+    c = x.shape[-1]
+    acc = torch.promote_types(x.dtype, torch.float32)
+    x2d = x.reshape(-1, c).to(acc)
+    sums = torch.cat([x2d.sum(0), (x2d.t() @ x2d).reshape(-1),
+                      torch.full((1,), x2d.shape[0], dtype=acc, device=x.device)])
+    if current_group() is not None:
+        sums = all_reduce_sum(sums)
+    n = sums[-1]
+    return sums[:c] / n, sums[c:-1].reshape(c, c) / n
+
+
+def _fused_conv_bn_1x1(conv_bn: nn.Sequential, in_mean: Optional[torch.Tensor],
+                       in_gram: Optional[torch.Tensor]):
+    """A 1x1 Conv2d + BatchNorm2d pair (`conv_bn`) folded into an affine map
+    (A [C_in, F], c [F]): y = x @ A + c (medseg_tpu/nn/blocks.py:208-262,
+    _FusedConvBN1x1).  In training the output's batch statistics come from
+    the input's channel mean m and Gram matrix G, since the conv is linear
+    in channels: mean = W^T m + b, var = diag(W^T G W) - (W^T m)^2 (flax's
+    fast variance, clipped at 0); the BatchNorm's running statistics blend
+    them once, as its forward would.  In eval mode its running statistics
+    are folded in.  The BatchNorm's own forward is not called."""
+    conv, bn = conv_bn[0], conv_bn[1]
+    w = conv.weight[:, :, 0, 0].t()  # [C_in, F]
+    if bn.training:
+        mu_raw = in_mean.to(w.dtype) @ w
+        mean = mu_raw + conv.bias
+        var = torch.clamp(((in_gram.to(w.dtype) @ w) * w).sum(0) - mu_raw * mu_raw,
+                          min=0.0)
+        with torch.no_grad():
+            bn.running_mean.lerp_(mean.to(bn.running_mean.dtype), bn.momentum)
+            bn.running_var.lerp_(var.to(bn.running_var.dtype), bn.momentum)
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    inv = bn.weight * torch.rsqrt(var + bn.eps)
+    return w * inv, bn.bias + (conv.bias - mean) * inv
+
+
 class AttentionGate(nn.Module):
     """Additive spatial attention on a skip connection, NCHW
-    (medseg_tpu/nn/blocks.py:264-319, its default unfused form; reference
-    AttentionUNet.py:29-54): psi = sigmoid(BN(1x1(relu(BN(W_g g) +
-    BN(W_x x))))); returns x * psi.  W_g, W_x and psi are Sequentials
-    (1x1 conv with bias, BN) at the reference's `W_g.{0,1}`, `W_x.{0,1}`,
-    `psi.{0,1}`.  The psi projection, a one-output-channel 1x1 conv that
-    the JAX package writes as a contraction with the same parameters
-    (`as_dot`), computes in the compute dtype, as everything here does."""
+    (medseg_tpu/nn/blocks.py:264-319, reference AttentionUNet.py:29-54):
+    psi = sigmoid(BN(1x1(relu(BN(W_g g) + BN(W_x x))))); returns x * psi.
+    W_g, W_x and psi are Sequentials (1x1 conv with bias, BN) at the
+    reference's `W_g.{0,1}`, `W_x.{0,1}`, `psi.{0,1}`.  The psi
+    projection, a one-output-channel 1x1 conv that the JAX package writes
+    as a contraction with the same parameters (`as_dot`), computes in the
+    compute dtype, as everything here does.
 
-    def __init__(self, g_ch: int, x_ch: int, f_int: int, dtype=torch.float32):
+    fused_stats=True lowers W_g and W_x as BatchNorm-folded contractions
+    (`_fused_conv_bn_1x1`): in training their statistics come from the
+    inputs' channel mean and Gram matrix (`_channel_stats`), so neither
+    conv output is materialized for its BatchNorm; the two contractions
+    and the folded biases make relu's input in one addmm and one matmul.
+    The same parameters, keys and function as the default form."""
+
+    def __init__(self, g_ch: int, x_ch: int, f_int: int, dtype=torch.float32,
+                 fused_stats: bool = False):
         super().__init__()
         self.W_g = _conv_bn_1x1(g_ch, f_int, dtype)
         self.W_x = _conv_bn_1x1(x_ch, f_int, dtype)
         self.psi = _conv_bn_1x1(f_int, 1, dtype)
+        self.fused_stats = fused_stats
+
+    def _fused_input(self, g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        g, x = g.permute(0, 2, 3, 1), x.permute(0, 2, 3, 1)  # NHWC views
+        stats_g = stats_x = (None, None)
+        if self.training:
+            stats_g, stats_x = _channel_stats(g), _channel_stats(x)
+        a_g, c_g = _fused_conv_bn_1x1(self.W_g, *stats_g)
+        a_x, c_x = _fused_conv_bn_1x1(self.W_x, *stats_x)
+        cd = self.W_g[0].compute_dtype
+        pre = F.linear(g.to(cd), a_g.t().to(cd), (c_g + c_x).to(cd)) \
+            + F.linear(x.to(cd), a_x.t().to(cd))
+        return F.relu(pre).permute(0, 3, 1, 2)
 
     def forward(self, g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        psi = torch.sigmoid(self.psi(F.relu(self.W_g(g) + self.W_x(x))))
-        return x * psi
+        if self.fused_stats:
+            pre = self._fused_input(g, x)
+        else:
+            pre = F.relu(self.W_g(g) + self.W_x(x))
+        return x * torch.sigmoid(self.psi(pre))
 
 
 class RecurrentBlock(nn.Module):
@@ -293,11 +363,19 @@ class RecurrentBlock(nn.Module):
     the Sequential `conv` (`conv.0`, `conv.1`).  The one BatchNorm runs
     t+1 times a forward; in training each application blends the running
     statistics in turn, as flax's calls of one module do
-    (tests/test_recurrent_scan.py)."""
+    (tests/test_recurrent_scan.py).
 
-    def __init__(self, features: int, t: int = 2, dtype=torch.float32):
+    use_scan is the JAX package's nn.scan form of the t weight-tied
+    applications, which kept XLA's program size constant in t.  Its
+    counterpart here is this same weight-tied loop: the flag is accepted
+    and changes nothing.  The CUDA form of one program for many steps is
+    a captured graph (train/steps.ScanDrive, `--scan-chunk`)."""
+
+    def __init__(self, features: int, t: int = 2, dtype=torch.float32,
+                 use_scan: bool = False):
         super().__init__()
         self.t = t
+        self.use_scan = use_scan
         self.conv = nn.Sequential(
             Conv2d(features, features, 3, 1, 1, compute_dtype=dtype),
             BatchNorm2d(features, compute_dtype=dtype), nn.ReLU())
@@ -312,12 +390,14 @@ class RecurrentBlock(nn.Module):
 class RRCNNBlock(nn.Module):
     """A 1x1 channel map (with bias, no BN) + two RecurrentBlocks + the
     outer residual, NCHW (medseg_tpu/nn/blocks.py:367-384, reference
-    R2U_Net.py:36-48); names `conv_1x1`, `RCNN.0`, `RCNN.1`."""
+    R2U_Net.py:36-48); names `conv_1x1`, `RCNN.0`, `RCNN.1`.  use_scan
+    goes to both recurrences (it changes nothing: RecurrentBlock)."""
 
-    def __init__(self, in_ch: int, features: int, t: int = 2, dtype=torch.float32):
+    def __init__(self, in_ch: int, features: int, t: int = 2, dtype=torch.float32,
+                 use_scan: bool = False):
         super().__init__()
-        self.RCNN = nn.Sequential(RecurrentBlock(features, t, dtype),
-                                  RecurrentBlock(features, t, dtype))
+        self.RCNN = nn.Sequential(RecurrentBlock(features, t, dtype, use_scan),
+                                  RecurrentBlock(features, t, dtype, use_scan))
         self.conv_1x1 = Conv2d(in_ch, features, 1, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -18,6 +18,14 @@ the two devices.  preprocess_eval_batch makes the same split: on the card
 it is one launch of the photometric kernel's eval form (no alpha, beta or
 flip), one device operation, which computes the CPU branch's
 normalization bit for bit.
+
+s2d=True (classification only; masks ignore it, as in the JAX package)
+emits the images in the stem's space-to-depth layout [B,H/2,W/2,12]
+(ops/image.py space_to_depth, models/resnet.py FoldedStem).  On the card
+the warp kernel writes its planar form [B,3H,W] and one permute makes
+the s2d layout, in place of the planar-to-NHWC step; the eval form is
+the photometric kernel's output shuffled.  On the CPU the plain
+versions' NHWC output is shuffled.
 """
 
 from __future__ import annotations
@@ -125,13 +133,15 @@ def augment_batch(
     cfg: AugmentConfig = AugmentConfig(),
     out_dtype=torch.float32,
     fast_warp: bool = True,
+    s2d: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Full train-time augmentation for a uint8 NHWC batch.
 
     images: uint8 [B,H,W,3]; masks: uint8 [B,H,W] binary 0/255, or None.
-    Returns (normalized images [B,H,W,3] in out_dtype, masks [B,H,W,1] in
-    [0,1] or None).  fast_warp=False, or a config outside the two-pass
-    warp's envelope, takes the exact single-pass warp.
+    Returns (normalized images [B,H,W,3] in out_dtype, or [B,H/2,W/2,12]
+    with s2d and no masks; masks [B,H,W,1] in [0,1] or None).
+    fast_warp=False, or a config outside the two-pass warp's envelope,
+    takes the exact single-pass warp.
     """
     b, h, w, _ = images.shape
     params = sample_augment_params(gen, b, cfg)
@@ -151,9 +161,13 @@ def augment_batch(
         # Classification writes the model's dtype directly; segmentation
         # keeps float32, since the mask plane is thresholded on the way out.
         k_dtype = out_dtype if masks is None else torch.float32
+        planar = s2d and masks is None
         out = warp_affine_kernel(inp, mats, out_dtype=k_dtype,
                                  alpha=params.alpha, beta=params.beta,
-                                 mean=mean, std=std)
+                                 mean=mean, std=std, planar=planar)
+        if planar:  # [B, 3H, W] -> [B, H/2, W/2, 12] in one permute
+            x = out.reshape(b, 3, h // 2, 2, w // 2, 2).permute(0, 2, 4, 1, 3, 5)
+            return x.reshape(b, h // 2, w // 2, 12), None
         x = out[..., :3].to(out_dtype)
         m = None
         if masks is not None:
@@ -170,6 +184,8 @@ def augment_batch(
         + params.beta[:, None, None, None] * 255.0
     x = torch.clamp(x, 0.0, 255.0)
     x = I.normalize_imagenet(x, cfg.mean, cfg.std).to(out_dtype)
+    if s2d and masks is None:
+        x = I.space_to_depth(x)
 
     m = None
     if masks is not None:
@@ -187,12 +203,16 @@ def preprocess_eval_batch(
     *,
     cfg: AugmentConfig = AugmentConfig(),
     out_dtype=torch.float32,
+    s2d: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Val/test preprocessing: normalize only (reference utils/trainer.py:71-83)."""
+    """Val/test preprocessing: normalize only (reference utils/trainer.py:71-83);
+    s2d as in augment_batch."""
     if _on_card(images):
         x = fused_photometric(images, None, None, None, out_dtype, cfg.mean, cfg.std)
     else:
         x = I.normalize_imagenet(images, cfg.mean, cfg.std).to(out_dtype)
+    if s2d and masks is None:
+        x = I.space_to_depth(x)
     m = None
     if masks is not None:
         m = (masks[..., None].to(torch.float32) / 255.0).to(out_dtype)

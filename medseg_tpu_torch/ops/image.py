@@ -129,6 +129,16 @@ def normalize_imagenet(images: torch.Tensor, mean: Sequence[float],
     return (images.to(torch.float32) - mean) / std
 
 
+def space_to_depth(x: torch.Tensor) -> torch.Tensor:
+    """NHWC [B,H,W,C] -> [B,H/2,W/2,4C], channel order c*4 + dy*2 + dx
+    (medseg_tpu/ops/image.py:237-246): the stem's input layout
+    (models/resnet.py FoldedStem).  NCHW's F.pixel_unshuffle order; the
+    U-Net twins' order (nn/s2d.py) is another."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 5, 2, 4)
+    return x.reshape(b, h // 2, w // 2, c * 4)
+
+
 @functools.lru_cache(maxsize=16)
 def _scaled_constants(mean: tuple, std: tuple, device: torch.device):
     """(255*mean, 255*std) in float32 on `device`, copied there once per

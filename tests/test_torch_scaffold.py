@@ -35,11 +35,15 @@ def test_import_of_every_module_leaves_jax_out():
         "for m in mods: importlib.import_module(m)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
+        "print(' '.join(mods))\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 32  # every subpackage and module
+    assert {"medseg_tpu_torch.nn.s2d", "medseg_tpu_torch.utils.debug",
+            "medseg_tpu_torch.apps.eda",
+            "medseg_tpu_torch.tools.certify_workflow"} <= set(out.stdout.split())
 
 
 def _imported_roots(path: Path):

@@ -378,6 +378,47 @@ def case_clipseg(group, work: Path) -> dict:
     return {**out, "logs": logs, "best": best}
 
 
+def twin_inputs():
+    """A global batch of 8 at 8px for the twins: the gate's g (6
+    channels) and x (5), the UpConvS2D's input (5), and cotangents for the
+    gate's output (5 channels at 8px) and the UpConvS2D's (8 at 16px)."""
+    rng = np.random.default_rng(9)
+    return (rng.normal(0.3, 1.5, (8, 8, 8, 6)), rng.normal(-0.2, 1.0, (8, 8, 8, 5)),
+            rng.normal(0, 1, (8, 8, 8, 5)), rng.normal(0, 1, (8, 16, 16, 8)))
+
+
+def twin_blocks(dtype):
+    """The fused AttentionGate(g 6, x 5 -> 4) and UpConvS2D(5 -> 8)."""
+    from medseg_tpu_torch.nn.blocks import AttentionGate
+    from medseg_tpu_torch.nn.s2d import UpConvS2D
+
+    return {"gate": AttentionGate(6, 5, 4, dtype, fused_stats=True),
+            "up": UpConvS2D(5, 8, dtype)}
+
+
+def case_twins(group: DataParallelGroup, work: Path) -> dict:
+    """The fused gate and UpConvS2D in training on this rank's rows of a
+    global batch of 8: the outputs, the input gradients of sum(y * ct),
+    this rank's share of the parameter gradients, and the running
+    statistics (the global batch's)."""
+    g, x, ct_gate, ct_up = twin_inputs()
+    out = {}
+    for tag, dtype in DTYPES.items():
+        for name, block in twin_blocks(dtype).items():
+            block = _load(block, work, f"twin_{name}", dtype).train()
+            ins = [shard_batch(nchw(a).to(dtype), group).requires_grad_(True)
+                   for a in ((g, x) if name == "gate" else (x,))]
+            ct = shard_batch(nchw(ct_gate if name == "gate" else ct_up).to(dtype), group)
+            with data_parallel(group):
+                y = block(*ins)
+                (y * ct).sum().backward()
+            out[f"{tag}/{name}"] = {
+                "y": nhwc(y), **{f"d{i}": nhwc(t.grad) for i, t in enumerate(ins)},
+                **{k: v.numpy() for k, v in _params(block).items()},
+                **{f"grad/{k}": p.grad.numpy() for k, p in block.named_parameters()}}
+    return out
+
+
 def case_collectives(group, work: Path) -> dict:
     """replicate_ of a module whose weights differ by rank (rank 0's
     everywhere after it), shard_process_local with equal and with unequal
@@ -399,7 +440,8 @@ def case_collectives(group, work: Path) -> dict:
 
 
 CASES = {"collectives": case_collectives, "bn": case_bn, "cls": case_cls, "explicit": case_explicit, "eval": case_eval,
-         "seg": case_seg, "trainer": case_trainer, "clipseg": case_clipseg, "scan": case_scan}
+         "seg": case_seg, "trainer": case_trainer, "clipseg": case_clipseg, "scan": case_scan,
+         "twins": case_twins}
 
 
 def main(argv) -> None:
